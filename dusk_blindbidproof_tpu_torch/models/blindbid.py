@@ -1,0 +1,260 @@
+"""BlindBid prove/verify — the application layer on tensors.
+
+  * `prove_batch` commits [d, k, y, y_inv] then the one-hot toggle bits (the
+    `y` commitment is transcripted but never wired into the circuit, exactly
+    as in the reference), synthesizes the shared gadget shape, and runs the
+    device-phase prover.
+  * `verify_batch` recommits, uses the same gadget shape, and runs one
+    fixed-base plus one dynamic MSM.
+
+Both take `device=` (default CUDA; see models.bulletproofs.resolve_device).
+The circuit shape is cached per list length and device; the witness is
+generated by a host routine mirroring the gadget's gate order.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..ops import limb
+from ..utils.curve_host import L, scalar_invert
+from ..utils.merlin import Transcript
+from .bulletproofs import (
+    CompiledCircuit,
+    Prover,
+    ProverWitness,
+    Verifier,
+    resolve_device,
+)
+from .constants import GENS_CAPACITY, TRANSCRIPT_LABEL, mimc_constants
+from .gadgets import mimc_hash, proof_gadget
+from .proof_struct import BlindBidProof, R1CSProof
+from .r1cs import LC, VerifierCS
+
+
+@dataclass
+class ProveRequest:
+    """Opcode-1 payload: scalars are canonical ints; the pub_list keeps raw
+    (possibly non-canonical, from_bits) values."""
+
+    d: int
+    k: int
+    y: int
+    y_inv: int
+    q: int
+    z_img: int
+    seed: int
+    pub_list: list[int]
+    toggle: int
+
+
+@dataclass
+class VerifyRequest:
+    """Opcode-2 payload."""
+
+    proof: BlindBidProof
+    score: int
+    z_img: int
+    seed: int
+    pub_list: list[int]
+
+
+@functools.lru_cache(maxsize=8)
+def blindbid_circuit(list_len: int, device="cpu") -> CompiledCircuit:
+    """Synthesize the circuit shape once per list length.
+
+    Public symbol order: [q, z_img, seed, items...]; committed order:
+    [d, k, y, y_inv, toggles...]."""
+    cs = VerifierCS()
+    v = [cs.commit_var() for _ in range(4)]
+    toggles = [cs.commit_var() for _ in range(list_len)]
+    q = cs.public_var()
+    z_img = cs.public_var()
+    seed = cs.public_var()
+    items = [cs.public_var() for _ in range(list_len)]
+    proof_gadget(
+        cs, v[0], v[1], v[3], q, z_img, seed, mimc_constants(), toggles,
+        [LC.of(i) for i in items],
+    )
+    return CompiledCircuit.compile(cs.artifact(), device)
+
+
+def _mimc_witness(a_L, a_R, a_O, left: int, key: int, constants) -> int:
+    """Append one mimc_gadget call's gate values; returns the output value."""
+    x = left % L
+    key = key % L
+    for c in constants:
+        a = (x + key + c) % L
+        a2 = a * a % L
+        a3 = a2 * a % L
+        a4 = a2 * a2 % L
+        a7 = a4 * a3 % L
+        a_L += [a, a2, a2, a4]
+        a_R += [a, a, a2, a3]
+        a_O += [a2, a3, a4, a7]
+        x = a7
+    return (x + key) % L
+
+
+def blindbid_witness(req: ProveRequest):
+    """Gate assignments in the gadget's exact gate order
+    (models.gadgets.proof_gadget)."""
+    consts = mimc_constants()
+    a_L: list[int] = []
+    a_R: list[int] = []
+    a_O: list[int] = []
+    m = _mimc_witness(a_L, a_R, a_O, req.k, 0, consts)
+    x = _mimc_witness(a_L, a_R, a_O, req.d, m, consts)
+    # one_of_many: booleanity gates per toggle
+    toggles = [1 if i == req.toggle else 0 for i in range(len(req.pub_list))]
+    for t in toggles:
+        a_L.append(t)
+        a_R.append((1 - t) % L)
+        a_O.append(t * (1 - t) % L)
+    # membership gates: items[i]*toggle[i], toggle[i]*x
+    for item, t in zip(req.pub_list, toggles):
+        a_L.append(item % L)
+        a_R.append(t)
+        a_O.append(item * t % L)
+        a_L.append(t)
+        a_R.append(x)
+        a_O.append(t * x % L)
+    y = _mimc_witness(a_L, a_R, a_O, req.seed, x, consts)
+    _mimc_witness(a_L, a_R, a_O, req.seed, m, consts)
+    # score gadget: y * y_inv, d * y_inv
+    a_L.append(y)
+    a_R.append(req.y_inv % L)
+    a_O.append(y * req.y_inv % L)
+    a_L.append(req.d % L)
+    a_R.append(req.y_inv % L)
+    a_O.append(req.d * req.y_inv % L)
+    return a_L, a_R, a_O
+
+
+def make_prove_request(
+    d: int, k: int, seed: int, pub_list_extra: list[int], toggle_pos: int
+) -> ProveRequest:
+    """Test/bench helper: derive consistent (y, y_inv, q, z_img) the way the
+    canonical Go client does, inserting the prover's own bid into the list."""
+    consts = mimc_constants()
+    m = mimc_hash(k, 0, consts)
+    x = mimc_hash(d, m, consts)
+    y = mimc_hash(seed, x, consts)
+    z = mimc_hash(seed, m, consts)
+    y_inv = scalar_invert(y)
+    pub_list = list(pub_list_extra)
+    pub_list.insert(toggle_pos, x)
+    return ProveRequest(
+        d=d, k=k, y=y, y_inv=y_inv, q=d * y_inv % L, z_img=z, seed=seed,
+        pub_list=pub_list, toggle=toggle_pos,
+    )
+
+
+def _publics_limbs(reqs_publics: list[list[int]]) -> np.ndarray:
+    B = len(reqs_publics)
+    npub = len(reqs_publics[0])
+    return limb.ints_to_limbs_fast(
+        [v % L for row in reqs_publics for v in row], (B, npub)
+    )
+
+
+def prove_batch(
+    requests: list[ProveRequest],
+    rng: np.random.Generator | None = None,
+    seed: bytes = b"\x00" * 32,
+    device=None,
+) -> list[BlindBidProof]:
+    """Prove a batch of same-list-length requests in transcript lockstep."""
+    device = resolve_device(device)
+    B = len(requests)
+    list_len = len(requests[0].pub_list)
+    if any(len(r.pub_list) != list_len for r in requests):
+        raise ValueError("batch must share list length")
+    for r in requests:
+        if not 0 <= r.toggle < list_len:
+            raise ValueError("toggle out of range")
+    circuit = blindbid_circuit(list_len, device)
+    rng = rng or np.random.default_rng()
+
+    transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
+    prover = Prover(transcripts, cap=GENS_CAPACITY, device=device)
+
+    m = circuit.m
+    values = [
+        [r.d, r.k, r.y, r.y_inv] + [1 if i == r.toggle else 0 for i in range(list_len)]
+        for r in requests
+    ]
+    blind_ints = [
+        [int.from_bytes(rng.bytes(32), "little") % L for _ in range(m)]
+        for _ in range(B)
+    ]
+    commitments = prover.commit_batch(values, blind_ints)
+
+    n_pad = circuit.n_pad
+    aL = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
+    aR = np.zeros_like(aL)
+    aO = np.zeros_like(aL)
+    for i, r in enumerate(requests):
+        l, rr, o = blindbid_witness(r)
+        aL[i, : len(l)] = limb.ints_to_limbs_fast(l)
+        aR[i, : len(rr)] = limb.ints_to_limbs_fast(rr)
+        aO[i, : len(o)] = limb.ints_to_limbs_fast(o)
+
+    witness = ProverWitness(
+        a_L=aL,
+        a_R=aR,
+        a_O=aO,
+        v=limb.ints_to_limbs_fast([v % L for row in values for v in row], (B, m)),
+        v_blinding=limb.ints_to_limbs_fast([g for row in blind_ints for g in row], (B, m)),
+        publics=_publics_limbs(
+            [[r.q, r.z_img, r.seed] + list(r.pub_list) for r in requests]
+        ),
+    )
+    r1cs_proofs = prover.prove(circuit, witness, seed=seed)
+    return [
+        BlindBidProof(r1cs=p, commitments=commitments[i][:4], t_c=commitments[i][4:])
+        for i, p in enumerate(r1cs_proofs)
+    ]
+
+
+def verify_batch(requests: list[VerifyRequest], device=None) -> list[bool]:
+    """Verify a batch of same-shape requests."""
+    device = resolve_device(device)
+    B = len(requests)
+    list_len = len(requests[0].pub_list)
+    if any(len(r.pub_list) != list_len for r in requests):
+        raise ValueError("batch must share list length")
+    circuit = blindbid_circuit(list_len, device)
+
+    transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
+    verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device)
+    commitments = [r.proof.commitments + r.proof.t_c for r in requests]
+    for row in commitments:
+        if len(row) != 4 + list_len:
+            raise ValueError("commitment count does not match list length")
+    verifier.commit_batch(commitments)
+    publics = _publics_limbs(
+        [[r.score, r.z_img, r.seed] + list(r.pub_list) for r in requests]
+    )
+    return verifier.verify(
+        circuit, [r.proof.r1cs for r in requests], commitments, publics
+    )
+
+
+def proof_blob(proof: BlindBidProof) -> bytes:
+    """Commitments, toggle commitments, then the R1CS proof bytes: the
+    layout of the frozen full-size vector in tests/data."""
+    return b"".join(proof.commitments) + b"".join(proof.t_c) + proof.r1cs.to_bytes()
+
+
+def proof_from_blob(blob: bytes, list_len: int) -> BlindBidProof:
+    """Inverse of `proof_blob` for a list of `list_len` items."""
+    head = [blob[32 * i : 32 * (i + 1)] for i in range(4 + list_len)]
+    return BlindBidProof(
+        r1cs=R1CSProof.from_bytes(blob[32 * (4 + list_len) :]),
+        commitments=head[:4],
+        t_c=head[4:],
+    )

@@ -1,0 +1,82 @@
+"""Where the time of one B = 16 BlindBid round trip goes on the GPU.
+
+    python3 scripts/profile_port.py [--batch 16] [--out chiprun_out/profile_port.json]
+
+Runs one warm-up prove+verify round trip of the PyTorch port, then one under
+torch.profiler (CPU and CUDA activities).  Prints the kernels by device time,
+the device-busy share of the profiled wall time, and writes both as JSON.
+Needs a CUDA card; the numbers come from that card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (request builders shared with the smoke run)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile_port.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+
+    from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch, verify_batch
+
+    dev = torch.device("cuda", 0)
+    reqs = chip_smoke.requests(args.batch)
+
+    def round_trip():
+        proofs = prove_batch(reqs, rng=np.random.default_rng(7), device=dev)
+        oks = verify_batch(chip_smoke.verify_requests(reqs, proofs), device=dev)
+        torch.cuda.synchronize()
+        if oks != [True] * args.batch:
+            sys.exit("round trip did not verify")
+
+    round_trip()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        round_trip()
+        wall = time.perf_counter() - t0
+
+    # kernel events only: the aten ops that launched them carry the same
+    # device time again
+    rows = [
+        {"name": e.key, "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy_ms = sum(r["device_ms"] for r in rows)
+    summary = {
+        "card": torch.cuda.get_device_name(0),
+        "batch": args.batch,
+        "wall_s_profiled": wall,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (wall * 1e3) if rows else None,
+        "kernels": rows[:25],
+    }
+    print(f"profiled round trip: {wall:.4f} s wall, device busy {busy_ms:.1f} ms "
+          f"({summary['device_busy_share']})")
+    for r in rows[:25]:
+        print(f"{r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(summary, indent=1))
+
+
+if __name__ == "__main__":
+    main()
