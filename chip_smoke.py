@@ -4,10 +4,13 @@
 
 Phases, in order; any failure exits non-zero:
   1. card and build: the nvidia-smi name/power-limit line, then nvcc builds
-     the four kernels from dusk_blindbidproof_tpu_torch/csrc;
+     the kernels from dusk_blindbidproof_tpu_torch/csrc and ptxas's
+     register and spill lines are printed;
   2. kernels against their plain versions at the main path's shapes (K1 on
      16 x 2048 rows for both moduli; K2/K3/K4 on one bucket-scan step of
-     16 x 2564 points), random, all-8192 and identity inputs, compared
+     16 x 2564 points; the 32-step scans madd_scan on 16 x 82040 and
+     16 x 2 x 40980 Niels items, add_scan on 32 x 1281 and add_total on
+     32 x 8191 points), random, all-8192 and identity inputs, compared
      exactly with canon(plain); kernel and plain times from CUDA events;
   3. the main path at B = 1: BlindBid prove at list length 4 with
      rng = default_rng(42) must give the frozen n = 2048 proof bytes,
@@ -16,13 +19,15 @@ Phases, in order; any failure exits non-zero:
   4. the main path at B = 16: one warm-up round trip, TIMED_TRIPS timed
      round trips (median and spread of s/op), then one round trip with the
      spans on and the launch counts set to 0 just before it and read just
-     after; every kernel must have launched;
+     after; every kernel of the path must have launched (all but the
+     one-step madd, whose callers now go through madd_scan);
   5. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,23 +65,45 @@ CUBE_PROOF = (
 # SM and clock against 128 FFMA), a multiply-add counted as two operations
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 33.5e12
-# a field product: 441 schoolbook multiply-adds plus 441 in the fold of the
-# high 21 limbs through the residue rows (csrc/field25519.cuh fe_mul)
-OPS_PER_FIELD_MUL = 2 * (21 * 21 + 21 * 21)
+# a field product as the work itself: a 256 x 256 bit product is 8 x 8 wide
+# (32 x 32 -> 64) multiply-adds and 8 more fold it at 2^255 = 19; a wide
+# multiply-add counts as four int32 operations.  Every kernel is held to
+# this count, whatever arithmetic it runs today: a bound follows the
+# function, not the implementation.
+OPS_PER_FIELD_MUL = 4 * (8 * 8 + 8)
 FIELD_MULS = {"madd": 7, "add": 9, "double": 8}
-# bytes per point op, as the kernels touch them: madd reads 3 of q's 4 Niels
-# rows, double reads only X, Y and Z; every op writes one 4-row point
+# bytes per point op, as the tensors' layout has them: madd reads 3 of q's 4
+# Niels rows, double reads only X, Y and Z; every op writes one 4-row point
 FE_BYTES = 4 * 21
 POINT_BYTES = {"madd": (4 + 3 + 4) * FE_BYTES, "add": (4 + 4 + 4) * FE_BYTES,
                "double": (3 + 4) * FE_BYTES}
+BLOCK_R = 32  # steps of one scan launch (ops/msm.py _BLOCK_R)
+# bytes per scanned item: the item read once, its prefix written once; the
+# totals-only scan writes one point per R items
+SCAN_BYTES = {"madd_scan": (3 + 4) * FE_BYTES, "add_scan": (4 + 4) * FE_BYTES,
+              "add_total": 4 * FE_BYTES + 4 * FE_BYTES / BLOCK_R}
+SCAN_FIELD_MULS = {"madd_scan": 7, "add_scan": 9, "add_total": 9}
 SOURCE = "dusk_blindbidproof_tpu_torch/csrc/edwards_kernels.cu"
+PLANES = "dusk_blindbidproof_tpu/ops/fused.py:220"
 REPLACES = {
     "mul_rows_fp": "dusk_blindbidproof_tpu/ops/fused.py:328",
     "mul_rows_fl": "dusk_blindbidproof_tpu/ops/fused.py:328",
-    "madd": "dusk_blindbidproof_tpu/ops/fused.py:220",
-    "add": "dusk_blindbidproof_tpu/ops/fused.py:220",
-    "double": "dusk_blindbidproof_tpu/ops/fused.py:220",
+    "madd": PLANES,
+    "add": PLANES,
+    "double": PLANES,
+    "madd_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:357",
+    "add_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:109",
+    "add_total": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:164",
 }
+# the scans' shapes on the main path at B = 16:
+# (kernel, caller, leading shape x items, affine-Niels items, timed launches)
+SCAN_CASES = [
+    ("madd_scan", "phase A", (16, 82040), True, 5),
+    ("madd_scan", "IPA round", (16, 2, 40980), True, 5),
+    ("add_scan", "block totals", (32, 1281), False, 20),
+    ("add_total", "bucket suffix sums", (32, 8191), False, 20),
+]
+OFF_PATH = ("madd",)  # checked in phase 2, no caller left on the main path
 SCAN_WIDTH = 2564  # bucket-scan step width: 82040 items / 32 steps
 ROWS = (16, 2048)  # K1: 16 proofs x n = 2048
 TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
@@ -102,6 +129,32 @@ def cuda_ms(fn, reps: int) -> float:
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_INT32_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ptxas(log: str) -> None:
+    """The K2 / K3 / scan kernels must compile without spills into at most
+    128 registers a thread (four blocks of 128 threads an SM): ptxas reports
+    both per entry function."""
+    lines = log.splitlines()
+    seen = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?(point_(?:step|scan)_kernelILi\d(?:ELi\d)?)", line)
+        if not m:
+            continue
+        name = re.sub(r"ILi(\d)(?:ELi(\d))?", lambda t: "<" + ", ".join(filter(None, t.groups())) + ">",
+                      m.group(1))
+        props = " ".join(lines[i + 1:i + 4])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
+        regs = re.search(r"Used (\d+) registers", props)
+        if not spill or not regs:
+            fail(f"no ptxas report found for {name}")
+        print(f"ptxas {name}: {regs.group(1)} registers, spill "
+              f"{spill.group(1)} / {spill.group(2)} bytes", flush=True)
+        if int(spill.group(1)) or int(spill.group(2)) or int(regs.group(1)) > 128:
+            fail(f"{name} spills or holds more than 128 registers")
+        seen += 1
+    if seen != 5:
+        fail(f"expected ptxas reports of 5 point kernels (2 one-step, 3 scans), found {seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +216,48 @@ def check_kernels(dev) -> dict:
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
         print(f"K {name}: max abs err 0 (tolerance 0) on {n} points, "
               f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    check_scans(dev, rand, results)
     return results
+
+
+def check_scans(dev, rand, results) -> None:
+    """The 32-step scan kernels at the main path's shapes, padded to whole
+    blocks with identity items exactly as ops/msm.py pads them."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb, msm
+
+    def items(shape, niels):
+        x = rand((*shape, 4, limb.NLIMBS))
+        ident = (edwards.identity_niels if niels else edwards.identity)(device=dev)
+        flat = x.view(-1, x.shape[-3], 4, limb.NLIMBS)
+        flat[0, 0] = 8192  # the largest rows the plain engine hands over
+        flat[0, 1] = ident
+        flat[-1, 33:40] = ident  # a run of identities inside one block
+        return msm._blocked(x, niels=niels)[0]
+
+    for name, label, shape, niels, reps in SCAN_CASES:
+        x = items(shape, niels)
+        kern, ref = getattr(fused, name), getattr(fused, name + "_ref")
+        got, want = kern(x, BLOCK_R), ref(x, BLOCK_R)
+        if name == "add_total":
+            got, want = (got,), (want,)
+        err = 0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
+            err = max(err, int((g - limb.canon(limb.FP, w)).abs().max()))
+        if err:
+            fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
+        del got, want, g, w
+        ms = cuda_ms(lambda: kern(x, BLOCK_R), reps)
+        plain = cuda_ms(lambda: ref(x, BLOCK_R), 1)
+        n = x.numel() // (4 * limb.NLIMBS)
+        bms, by = bound_ms(n * SCAN_BYTES[name], n * SCAN_FIELD_MULS[name] * OPS_PER_FIELD_MUL)
+        print(f"K {name} ({label}): max abs err 0 (tolerance 0) on {n} items in "
+              f"{n // BLOCK_R} blocks of {BLOCK_R}, kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})", flush=True)
+        # the kernels line carries each scan at its first (largest) shape
+        results.setdefault(name, dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bms, bound_by=by))
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +377,8 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
     if oks != [True] * B:
         fail("B=16 profiled round trip did not verify")
     print(profiling.report(), flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    print(f"launches in that round trip: {counts}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     return counts, s_per_op
@@ -307,6 +402,7 @@ def main() -> None:
     fused.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {fused.BUILD_SECONDS} s)", flush=True)
     print(fused.BUILD_LOG.strip(), flush=True)
+    check_ptxas(fused.BUILD_LOG)
 
     kernels = check_kernels(dev)
     main_path_b1(dev)

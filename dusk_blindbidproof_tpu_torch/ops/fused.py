@@ -1,17 +1,25 @@
 """Hand-written Hopper kernels for the limb engine's hot ops, and their
 plain PyTorch versions.
 
-Four kernels (csrc/edwards_kernels.cu over csrc/field25519.cuh) replace the
-JAX package's four Pallas kernels:
+The kernels of csrc/edwards_kernels.cu replace the JAX package's four
+Pallas kernels, and the 32-step loops that drove two of them:
 
-    K1 mul_rows  a*b mod p or mod l on [..., 21] limb rows
-    K2 madd      extended + affine-Niels point add (7M), the bucket-scan leaf
-    K3 add       unified extended point add (9M)
-    K4 double    extended point doubling (4M + 4S)
+    K1 mul_rows   a*b mod p or mod l on [..., 21] limb rows
+    K2 madd       extended + affine-Niels point add (7M), the bucket-scan leaf
+    K3 add        unified extended point add (9M)
+    K4 double     extended point doubling (4M + 4S)
+    madd_scan     R-step inclusive scan of every block of R Niels items (K2 leaf)
+    add_scan      the same over extended points (K3 leaf)
+    add_total     the R-item block sums alone (K3 leaf)
+
+K1 and K4 run on csrc/field25519.cuh (21 limbs of 13 bits); K2, K3 and the
+scans on csrc/fe25519.cuh (10 limbs of 26/25 bits inside the kernel; the
+tensors keep the 21-limb layout).
 
 Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
-`madd_ref`, `add_ref`, `double_ref`) and a CUDA tensor to its kernel, or
-raises: nothing falls back from the kernel to the plain version.  A CUDA
+`madd_ref`, `add_ref`, `double_ref`, `madd_scan_ref`, `add_scan_ref`,
+`add_total_ref`) and a CUDA tensor to its kernel, or raises: nothing falls
+back from the kernel to the plain version.  A CUDA
 wrapper checks device, dtype, shape and contiguity, allocates its output
 with torch.empty, launches on the current stream, raises on the returned
 cudaGetLastError() code, and adds one to its launch count.
@@ -42,7 +50,7 @@ from . import limb
 from .limb import FL, FP, NLIMBS
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("edwards_kernels.cu", "field25519.cuh")
+_SOURCES = ("edwards_kernels.cu", "field25519.cuh", "fe25519.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,10 +58,11 @@ NVCC_FLAGS = (
 )
 
 # one launch count per kernel entry point; K1 counts each modulus apart
-KERNELS = ("mul_rows_fp", "mul_rows_fl", "madd", "add", "double")
+KERNELS = ("mul_rows_fp", "mul_rows_fl", "madd", "add", "double",
+           "madd_scan", "add_scan", "add_total")
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_SECONDS = None  # wall time of this process's nvcc build, if it ran one
-BUILD_LOG = ""  # nvcc's output of that build (ptxas registers and spills)
+BUILD_LOG = ""  # nvcc's output for the library in use (ptxas registers and spills)
 
 _LIB = None
 _READY_DEVICES: set = set()
@@ -93,10 +102,13 @@ def _library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless this source's library is already built."""
+    """Compile the kernels unless this source's library is already built.
+    nvcc's output is kept beside the library, so `BUILD_LOG` holds it either way."""
     global BUILD_SECONDS, BUILD_LOG
     so = _library_path()
-    if so.exists():
+    log = so.with_suffix(".log")
+    if so.exists() and log.exists():
+        BUILD_LOG = log.read_text()
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -105,9 +117,12 @@ def build() -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
     BUILD_SECONDS = time.perf_counter() - t0
     BUILD_LOG = proc.stdout + proc.stderr
+    log_tmp = log.with_suffix(f".log.{os.getpid()}.tmp")
+    log_tmp.write_text(BUILD_LOG)
+    os.replace(log_tmp, log)  # the log first: a library on disk always has one
+    os.replace(tmp, so)
     return so
 
 
@@ -116,13 +131,14 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bb_init_constants.argtypes = [vp, ll, vp]
+        lib.bb_init_constants.argtypes = [vp, ll]
         lib.bb_mul_rows.argtypes = [ci, vp, vp, vp, ll, vp]
         lib.bb_point_add.argtypes = [vp, vp, vp, ll, vp]
         lib.bb_point_madd.argtypes = [vp, vp, vp, ll, vp]
         lib.bb_point_double.argtypes = [vp, vp, ll, vp]
+        lib.bb_point_scan.argtypes = [ci, ci, vp, vp, vp, ll, ci, vp]
         for fn in (lib.bb_init_constants, lib.bb_mul_rows, lib.bb_point_add,
-                   lib.bb_point_madd, lib.bb_point_double):
+                   lib.bb_point_madd, lib.bb_point_double, lib.bb_point_scan):
             fn.restype = ci
         _LIB = lib
     return _LIB
@@ -145,16 +161,11 @@ def _ready(device: torch.device):
     """The bound library, with its constant tables uploaded to `device`."""
     lib = _lib()
     if device.index not in _READY_DEVICES:
-        from .edwards import D2_LIMBS
-
         mods = np.ascontiguousarray(
             np.concatenate([mod_constants(FP), mod_constants(FL)])
         )
-        d2 = np.ascontiguousarray(D2_LIMBS, dtype=np.int32)
         with torch.cuda.device(device):
-            rc = lib.bb_init_constants(
-                mods.ctypes.data, mods.size, d2.ctypes.data
-            )
+            rc = lib.bb_init_constants(mods.ctypes.data, mods.size)
         if rc != 0:
             raise RuntimeError(f"bb_init_constants failed with code {rc}")
         _READY_DEVICES.add(device.index)
@@ -171,9 +182,10 @@ def kernel_operands(*xs):
     return tuple(x.expand(shape).contiguous() for x in xs)
 
 
-def _check(shape, *xs) -> None:
+def _check(shape, *xs, vector_loads: bool = False) -> None:
     """Raise unless every operand is what the kernels take: int32,
-    contiguous, of `shape`, on one CUDA device."""
+    contiguous, of `shape`, on one CUDA device; the kernels that read
+    16-byte vectors (K2, K3 and the scans) also need that alignment."""
     dev = xs[0].device
     for x in xs:
         if x.device.type != "cuda" or x.device != dev:
@@ -184,6 +196,8 @@ def _check(shape, *xs) -> None:
             raise ValueError(f"kernel operand shape {tuple(x.shape)} != {tuple(shape)}")
         if not x.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+        if vector_loads and x.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -291,7 +305,7 @@ def _point_op(name: str, fn_name: str, *xs) -> torch.Tensor:
     shape = xs[0].shape
     if tuple(shape[-2:]) != (4, NLIMBS):
         raise ValueError(f"point ops take [..., 4, {NLIMBS}] rows, got {tuple(shape)}")
-    _check(shape, *xs)
+    _check(shape, *xs, vector_loads=name != "double")
     out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
     n = out.numel() // (4 * NLIMBS)
     if n:
@@ -321,3 +335,92 @@ def double(p: torch.Tensor) -> torch.Tensor:
     if not p.is_cuda:
         return double_ref(p)
     return _point_op("double", "bb_point_double", p)
+
+
+# ---------------------------------------------------------------------------
+# The R-step block scans over [..., C*R, 4, NLIMBS] items (K2 / K3 leaves)
+# ---------------------------------------------------------------------------
+
+_LEAF_MADD, _LEAF_ADD = 0, 1  # bb_point_scan's `leaf`
+_MODE_PREFIXES, _MODE_TOTALS = 0, 1  # and `mode`
+
+
+def _scan_ref(step, items: torch.Tensor, R: int, prefixes: bool):
+    """R lockstep steps over all blocks: step r adds item c*R + r of every
+    block c to that block's running sum, which starts at the identity."""
+    from .edwards import identity
+
+    batch, m = items.shape[:-3], items.shape[-3]
+    if R < 1 or m % R:
+        raise ValueError(f"scan takes C*R items, got {m} items for R = {R}")
+    xs = items.reshape(*batch, m // R, R, 4, NLIMBS).movedim(-3, 0)
+    acc = identity(device=items.device).expand(*xs.shape[1:])
+    within = []
+    for r in range(R):
+        acc = step(acc, xs[r])
+        if prefixes:
+            within.append(acc)
+    if not prefixes:
+        return acc
+    return torch.stack(within, dim=-3).reshape(*batch, m, 4, NLIMBS), acc
+
+
+def madd_scan_ref(items_niels: torch.Tensor, R: int):
+    """Plain version of `madd_scan`: R steps of `madd_ref`."""
+    return _scan_ref(madd_ref, items_niels, R, True)
+
+
+def add_scan_ref(items: torch.Tensor, R: int):
+    """Plain version of `add_scan`: R steps of `add_ref`."""
+    return _scan_ref(add_ref, items, R, True)
+
+
+def add_total_ref(items: torch.Tensor, R: int) -> torch.Tensor:
+    """Plain version of `add_total`: R steps of `add_ref`, last sum only."""
+    return _scan_ref(add_ref, items, R, False)
+
+
+def _scan_op(name: str, leaf: int, mode: int, items: torch.Tensor, R: int):
+    shape = items.shape
+    if len(shape) < 3 or tuple(shape[-2:]) != (4, NLIMBS):
+        raise ValueError(f"scans take [..., C*R, 4, {NLIMBS}] items, got {tuple(shape)}")
+    if R < 1 or shape[-3] % R:
+        raise ValueError(f"scan takes C*R items, got {shape[-3]} items for R = {R}")
+    _check(shape, items, vector_loads=True)
+    batch, blocks = shape[:-3], shape[-3] // R
+    totals = torch.empty((*batch, blocks, 4, NLIMBS), dtype=torch.int32, device=items.device)
+    within = torch.empty_like(items) if mode == _MODE_PREFIXES else None
+    nblocks = totals.numel() // (4 * NLIMBS)
+    if nblocks:
+        lib = _ready(items.device)
+        _launch(name, lib.bb_point_scan, leaf, mode, items.data_ptr(),
+                None if within is None else within.data_ptr(),
+                totals.data_ptr(), nblocks, R, _stream(items.device))
+    return within, totals
+
+
+def madd_scan(items_niels: torch.Tensor, R: int):
+    """Inclusive scan inside every block of R consecutive affine-Niels items.
+
+    items_niels: [..., C*R, 4, NLIMBS] in item order.  Returns (within
+    [..., C*R, 4, NLIMBS], totals [..., C, 4, NLIMBS]) with within[c*R + r] =
+    items[c*R] + ... + items[c*R + r] and totals[c] = within[c*R + R - 1].
+    One kernel launch on a CUDA tensor, `madd_scan_ref` on a CPU tensor."""
+    if not items_niels.is_cuda:
+        return madd_scan_ref(items_niels, R)
+    return _scan_op("madd_scan", _LEAF_MADD, _MODE_PREFIXES, items_niels, R)
+
+
+def add_scan(items: torch.Tensor, R: int):
+    """`madd_scan` over extended points (the 9M leaf)."""
+    if not items.is_cuda:
+        return add_scan_ref(items, R)
+    return _scan_op("add_scan", _LEAF_ADD, _MODE_PREFIXES, items, R)
+
+
+def add_total(items: torch.Tensor, R: int) -> torch.Tensor:
+    """Sums of every block of R consecutive extended points:
+    [..., C*R, 4, NLIMBS] -> [..., C, 4, NLIMBS], no prefixes written."""
+    if not items.is_cuda:
+        return add_total_ref(items, R)
+    return _scan_op("add_total", _LEAF_ADD, _MODE_TOTALS, items, R)[1]

@@ -9,8 +9,8 @@ Design (scatter-free Pippenger, as in the JAX package):
     one flat weighted sum  sum_j digit_j * Q_j  over m = n * WINDOWS items.
   * Bucket accumulation: sort items by digit descending (stable), gather
     the point rows, run R = 32 step within-block inclusive scans over all
-    blocks at once (one K2/K3 launch per step), take block offsets from a
-    recursive scan of the block totals, and read the scan only at the
+    blocks at once (one scan-kernel launch for all R steps), take block
+    offsets from a recursive scan of the block totals, and read the scan only at the
     bucket boundaries located by a digit histogram: suf_k = sum of items
     with digit >= k.  Then sum_b b * B_b = sum_{k>=1} suf_k, one tree sum.
 
@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from . import edwards, limb
+from . import edwards, fused, limb
 from .limb import FL, LIMB_BITS, NLIMBS
 
 # Canonical scalars are < L < 2^253, so limb 20 (weight 2^260) is always
@@ -70,14 +70,14 @@ def _pad_items(x: torch.Tensor, k: int, niels: bool = False) -> torch.Tensor:
 
 
 def _blocked(x: torch.Tensor, niels: bool = False):
-    """[..., m, 4, NL] -> ([R, ..., C, 4, NL] view for the step loop, C) with
-    identity padding; block c holds items [c*R, (c+1)*R)."""
+    """[..., m, 4, NL] -> ([..., C*R, 4, NL] contiguous, C) with identity
+    padding, the layout the scan kernels take; block c holds items
+    [c*R, (c+1)*R)."""
     m = x.shape[-3]
     C = -(-m // _BLOCK_R)
     if C * _BLOCK_R != m:
         x = _pad_items(x, C * _BLOCK_R - m, niels=niels)
-    view = x.reshape(*x.shape[:-3], C, _BLOCK_R, 4, NLIMBS)
-    return view.movedim(-3, 0), C
+    return x.contiguous(), C
 
 
 def _inclusive_scan_points(x: torch.Tensor) -> torch.Tensor:
@@ -98,13 +98,9 @@ def _inclusive_scan_points(x: torch.Tensor) -> torch.Tensor:
             off *= 2
         return x
     xs, C = _blocked(x)
-    acc = ident.expand(*xs.shape[1:])
-    within = []
-    for r in range(_BLOCK_R):
-        acc = edwards.add(acc, xs[r])
-        within.append(acc)
-    offsets = _shift_down(_inclusive_scan_points(acc), 1, ident)  # exclusive
-    out = torch.stack(within, dim=-3)  # [..., C, R, 4, NL]
+    within, totals = fused.add_scan(xs, _BLOCK_R)
+    offsets = _shift_down(_inclusive_scan_points(totals), 1, ident)  # exclusive
+    out = within.reshape(*within.shape[:-3], C, _BLOCK_R, 4, NLIMBS)
     out = edwards.add(out, offsets[..., :, None, :, :])
     out = out.reshape(*out.shape[:-4], C * _BLOCK_R, 4, NLIMBS)
     return out[..., :m, :, :]
@@ -128,10 +124,7 @@ def _tree_sum_points(x: torch.Tensor) -> torch.Tensor:
             m = x.shape[-3]
         return x[..., 0, :, :]
     xs, _ = _blocked(x)
-    acc = edwards.identity(device=x.device).expand(*xs.shape[1:])
-    for r in range(_BLOCK_R):
-        acc = edwards.add(acc, xs[r])
-    return _tree_sum_points(acc)
+    return _tree_sum_points(fused.add_total(xs, _BLOCK_R))
 
 
 def _bit_msm(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -200,17 +193,11 @@ def _bucket_scan_rows(pts_sorted: torch.Tensor, niels: bool):
 
     Returns (within_f [..., C*R, 4, NL] in item order: within_f[p] = sum of
     items (p//R)*R .. p, offsets [..., C, 4, NL], R)."""
-    xs, C = _blocked(pts_sorted, niels=niels)  # [R, ..., C, 4, NL]
+    xs, _ = _blocked(pts_sorted, niels=niels)
     ident = edwards.identity(device=pts_sorted.device)
-    leaf_add = edwards.add_niels if niels else edwards.add
-    acc = ident.expand(*xs.shape[1:])
-    within = []
-    for r in range(_BLOCK_R):
-        acc = leaf_add(acc, xs[r])
-        within.append(acc)
-    offsets = _shift_down(_inclusive_scan_points(acc), 1, ident)
-    within_f = torch.stack(within, dim=-3)  # [..., C, R, 4, NL]
-    within_f = within_f.reshape(*within_f.shape[:-4], C * _BLOCK_R, 4, NLIMBS)
+    scan = fused.madd_scan if niels else fused.add_scan
+    within_f, totals = scan(xs, _BLOCK_R)
+    offsets = _shift_down(_inclusive_scan_points(totals), 1, ident)
     return within_f, offsets, _BLOCK_R
 
 
