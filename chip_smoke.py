@@ -5,13 +5,18 @@
 Phases, in order; any failure exits non-zero:
   1. card and build: the nvidia-smi name/power-limit line, then nvcc builds
      the kernels from dusk_blindbidproof_tpu_torch/csrc and ptxas's
-     register and spill lines are printed;
-  2. kernels against their plain versions at the main path's shapes (K1 on
-     16 x 2048 rows for both moduli; K2/K3/K4 on one bucket-scan step of
-     16 x 2564 points; the 32-step scans madd_scan on 16 x 82040 and
-     16 x 2 x 40980 Niels items, add_scan on 32 x 1281 and add_total on
-     32 x 8191 points), random, all-8192 and identity inputs, compared
-     exactly with canon(plain); kernel and plain times from CUDA events;
+     register and spill lines are printed and checked for every kernel;
+  2. kernels against their plain versions at the main path's shapes: K1 mod p
+     on 16 x 41 rows first (its shape on the main path), then both moduli on
+     16 x 2048 rows and with an operand that is not 16-byte aligned; the squaring chain on 656 rows for
+     k = 2, 50, 100; K3 on one bucket-scan step of 16 x 2564 points; K4 on
+     16 points (the Horner step), 16 x 41 and 16 x 2564; the doubling chain
+     on 656 and 4098 points x 20 windows x 13 steps; the 32-step scans
+     madd_scan on 16 x 82040 and 16 x 2 x 40980 Niels items, add_scan on
+     32 x 1281 and add_total on 32 x 8191 points, and madd_scan with R = 2 on
+     16 x 2564 blocks; random, all-8192, zero and identity inputs, compared
+     exactly with canon(plain); kernel time from CUDA events around a replayed
+     CUDA graph of wrapper calls, eager-loop and plain times from CUDA events;
   3. the main path at B = 1: BlindBid prove at list length 4 with
      rng = default_rng(42) must give the frozen n = 2048 proof bytes,
      verify must accept it and reject a wrong seed, and the CAP = 8 cube
@@ -19,8 +24,8 @@ Phases, in order; any failure exits non-zero:
   4. the main path at B = 16: one warm-up round trip, TIMED_TRIPS timed
      round trips (median and spread of s/op), then one round trip with the
      spans on and the launch counts set to 0 just before it and read just
-     after; every kernel of the path must have launched (all but the
-     one-step madd, whose callers now go through madd_scan);
+     after; every kernel must have launched, and the two chains must have
+     kept the one-step launches of K4 and K1 mod p below LAUNCH_LIMITS;
   5. the kernels line (JSON), the card line, then the result line.
 """
 
@@ -71,41 +76,55 @@ PEAK_INT32_OPS = 33.5e12
 # this count, whatever arithmetic it runs today: a bound follows the
 # function, not the implementation.
 OPS_PER_FIELD_MUL = 4 * (8 * 8 + 8)
-FIELD_MULS = {"madd": 7, "add": 9, "double": 8}
-# bytes per point op, as the tensors' layout has them: madd reads 3 of q's 4
-# Niels rows, double reads only X, Y and Z; every op writes one 4-row point
+# a square needs each cross product once: 8 * 9 / 2 wide multiplies and the fold
+OPS_PER_FIELD_SQR = 4 * (8 * 9 // 2 + 8)
+# a point op as the work itself: an addition is 9 products; a doubling is 4
+# squares and 3 products, and 1 product more where T of the result is needed
+OPS_PER_ADD = 9 * OPS_PER_FIELD_MUL
+OPS_PER_DOUBLE_XYZ = 4 * OPS_PER_FIELD_SQR + 3 * OPS_PER_FIELD_MUL
+OPS_PER_DOUBLE = OPS_PER_DOUBLE_XYZ + OPS_PER_FIELD_MUL
+# bytes per point op, as the tensors' layout has them: double reads only X, Y
+# and Z; every op writes one 4-row point
 FE_BYTES = 4 * 21
-POINT_BYTES = {"madd": (4 + 3 + 4) * FE_BYTES, "add": (4 + 4 + 4) * FE_BYTES,
-               "double": (3 + 4) * FE_BYTES}
+POINT_BYTES = {"add": (4 + 4 + 4) * FE_BYTES, "double": (3 + 4) * FE_BYTES}
 BLOCK_R = 32  # steps of one scan launch (ops/msm.py _BLOCK_R)
-# bytes per scanned item: the item read once, its prefix written once; the
-# totals-only scan writes one point per R items
-SCAN_BYTES = {"madd_scan": (3 + 4) * FE_BYTES, "add_scan": (4 + 4) * FE_BYTES,
-              "add_total": 4 * FE_BYTES + 4 * FE_BYTES / BLOCK_R}
+# rows a scanned item brings (madd reads three Niels rows) and field products a step
+SCAN_ITEM_ROWS = {"madd_scan": 3, "add_scan": 4, "add_total": 4}
 SCAN_FIELD_MULS = {"madd_scan": 7, "add_scan": 9, "add_total": 9}
 SOURCE = "dusk_blindbidproof_tpu_torch/csrc/edwards_kernels.cu"
 PLANES = "dusk_blindbidproof_tpu/ops/fused.py:220"
+SCALAR_MUL = "dusk_blindbidproof_tpu/ops/fused.py:328"
 REPLACES = {
-    "mul_rows_fp": "dusk_blindbidproof_tpu/ops/fused.py:328",
-    "mul_rows_fl": "dusk_blindbidproof_tpu/ops/fused.py:328",
-    "madd": PLANES,
+    "mul_rows_fp": SCALAR_MUL,
+    "mul_rows_fl": SCALAR_MUL,
+    "sqr_chain": f"{SCALAR_MUL} as driven by dusk_blindbidproof_tpu/ops/ristretto.py:33",
     "add": PLANES,
     "double": PLANES,
+    "double_chain": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:67",
     "madd_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:357",
     "add_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:109",
     "add_total": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:164",
 }
 # the scans' shapes on the main path at B = 16:
-# (kernel, caller, leading shape x items, affine-Niels items, timed launches)
+# (kernel, caller, leading shape x items, affine-Niels items, R, timed launches)
 SCAN_CASES = [
-    ("madd_scan", "phase A", (16, 82040), True, 5),
-    ("madd_scan", "IPA round", (16, 2, 40980), True, 5),
-    ("add_scan", "block totals", (32, 1281), False, 20),
-    ("add_total", "bucket suffix sums", (32, 8191), False, 20),
+    ("madd_scan", "phase A", (16, 82040), True, BLOCK_R, 5),
+    ("madd_scan", "IPA round", (16, 2, 40980), True, BLOCK_R, 5),
+    ("add_scan", "block totals", (32, 1281), False, BLOCK_R, 20),
+    ("add_total", "bucket suffix sums", (32, 8191), False, BLOCK_R, 20),
+    # K2's formula on a running sum that is not the identity, one step wide
+    ("madd_scan", "two-step blocks", (16, 2 * 2564), True, 2, 20),
 ]
-OFF_PATH = ("madd",)  # checked in phase 2, no caller left on the main path
 SCAN_WIDTH = 2564  # bucket-scan step width: 82040 items / 32 steps
 ROWS = (16, 2048)  # K1: 16 proofs x n = 2048
+VERIFY_POINTS = 16 * 41  # dynamic points of 16 proofs: decompressed, then window-scaled
+TABLE_POINTS = 2 * 2048 + 2  # generators of the window tables at capacity 2048
+WINDOWS, WINDOW_STEPS = 20, 13  # ops/msm.py WINDOWS, LIMB_BITS
+SQR_CHAIN_K = (100, 50, 2)  # runs of squarings in x^(2^252 - 3); the longest goes in the kernels line
+# launches of a B = 16 round trip that the chains must have taken over: K4 is
+# left with the 3 x 12 Horner steps, K1 mod p with the products between chains
+LAUNCH_LIMITS = {"double": 40, "mul_rows_fp": 60}
+N_KERNELS = 10  # entry functions of the library: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans
 TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
 
 
@@ -115,6 +134,9 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Time of one call of `fn` in a loop of eager calls, by CUDA events: for a
+    kernel that runs shorter than its wrapper takes to enqueue it (about
+    20 us), this is the host's rate, not the kernel's time."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -126,23 +148,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Time of one call of `fn` on the device: `reps` calls of the wrapper are
+    captured into one CUDA graph (the wrappers launch on the current stream,
+    which is the capturing one), and the graph's replay is timed by CUDA
+    events, so that no host time lies between two launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_INT32_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_ptxas(log: str) -> None:
-    """The K2 / K3 / scan kernels must compile without spills into at most
+    """Every kernel of the library must compile without spills into at most
     128 registers a thread (four blocks of 128 threads an SM): ptxas reports
     both per entry function."""
     lines = log.splitlines()
-    seen = 0
+    seen = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\w*?(point_(?:step|scan)_kernelILi\d(?:ELi\d)?)", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if not m:
             continue
-        name = re.sub(r"ILi(\d)(?:ELi(\d))?", lambda t: "<" + ", ".join(filter(None, t.groups())) + ">",
-                      m.group(1))
+        name = m.group(1)  # mangled: the template arguments tell the instantiations apart
         props = " ".join(lines[i + 1:i + 4])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
         regs = re.search(r"Used (\d+) registers", props)
@@ -152,9 +194,9 @@ def check_ptxas(log: str) -> None:
               f"{spill.group(1)} / {spill.group(2)} bytes", flush=True)
         if int(spill.group(1)) or int(spill.group(2)) or int(regs.group(1)) > 128:
             fail(f"{name} spills or holds more than 128 registers")
-        seen += 1
-    if seen != 5:
-        fail(f"expected ptxas reports of 5 point kernels (2 one-step, 3 scans), found {seen}")
+        seen.append(name)
+    if len(seen) != N_KERNELS or len(set(seen)) != N_KERNELS:
+        fail(f"expected ptxas reports of {N_KERNELS} kernels, found {len(seen)}: {seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -162,102 +204,162 @@ def check_ptxas(log: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+class KernelChecks:
+    """Runs one kernel case after another: exact against canon(plain), then
+    timed (`ms` is the kernel's time on the device, from a replayed CUDA graph
+    of wrapper calls; the eager loop's time a call is printed beside it);
+    keeps each kernel's first case for the kernels line."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.gen = np.random.default_rng(2024)
+        self.results = {}
+
+    def rand(self, shape):
+        x = self.gen.integers(0, 8193, size=shape, dtype=np.int32)
+        return torch.from_numpy(x).to(self.dev)
+
+    def case(self, name, label, kern, ref, ctx, n_bytes, n_ops, reps, plain_reps=1):
+        """kern and ref take no arguments and return a tensor or a tuple of
+        tensors.  Returns the kernel's ms."""
+        from dusk_blindbidproof_tpu_torch.ops import limb
+
+        got, want = kern(), ref()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        err = 0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
+            err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
+        if err:
+            fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
+        del got, want, g, w
+        ms = device_ms(kern, reps)
+        eager = cuda_ms(kern, reps)
+        plain = cuda_ms(ref, plain_reps)
+        bms, by = bound_ms(n_bytes, n_ops)
+        print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms "
+              f"({eager:.4f} ms a call in an eager loop), plain {plain:.3f} ms, "
+              f"bound {bms:.6f} ms ({by})", flush=True)
+        self.results.setdefault(name, dict(max_abs_err=err, ms=ms, eager_ms=eager,
+                                           plain_ms=plain, bound_ms=bms, bound_by=by))
+        return ms
+
+
 def check_kernels(dev) -> dict:
-    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb
+    checks = KernelChecks(dev)
+    check_rows(checks)
+    check_points(checks)
+    check_scans(checks)
+    return checks.results
 
-    gen = np.random.default_rng(2024)
-    results = {}
 
-    def rand(shape):
-        return torch.from_numpy(gen.integers(0, 8193, size=shape, dtype=np.int32)).to(dev)
+def check_rows(checks) -> None:
+    """K1 and the squaring chain: random rows, all-8192 rows, zero rows."""
+    from dusk_blindbidproof_tpu_torch.ops import fused, limb
 
-    # K1: random rows, all-8192 rows, zero rows
-    for ctx in (limb.FP, limb.FL):
-        name = f"mul_rows_{ctx.name}"
-        a, b = rand((*ROWS, limb.NLIMBS)), rand((*ROWS, limb.NLIMBS))
+    nl = limb.NLIMBS
+
+    def operands(shape):
+        a, b = checks.rand((*shape, nl)), checks.rand((*shape, nl))
         a[0, 0], b[0, 0] = 8192, 8192
         a[0, 1], b[0, 2] = 0, 0
-        got = fused.mul_rows(ctx, a, b)
-        want = limb.canon(ctx, fused.mul_rows_ref(ctx, a, b))
-        err = int((got - want).abs().max())
-        if err:
-            fail(f"{name} disagrees with its plain version (max abs err {err})")
-        ms = cuda_ms(lambda: fused.mul_rows(ctx, a, b), 50)
-        plain = cuda_ms(lambda: fused.mul_rows_ref(ctx, a, b), 3)
-        rows = ROWS[0] * ROWS[1]
-        bms, by = bound_ms(rows * 3 * FE_BYTES, rows * OPS_PER_FIELD_MUL)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-        print(f"K1 {name}: max abs err 0 (tolerance 0) on {rows} rows, "
-              f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        return a, b
 
-    # K2-K4: one scan step of the bucket MSM; identity and all-8192 rows included
-    shape = (16, SCAN_WIDTH, 4, limb.NLIMBS)
-    p, q = rand(shape), rand(shape)
-    p[0, 0] = 8192
-    p[0, 1] = edwards.identity(device=dev)
-    q[0, 2] = edwards.identity(device=dev)
-    q_niels = q.clone()
-    q_niels[0, 2] = edwards.identity_niels(device=dev)
-    cases = {
-        "madd": (fused.madd, fused.madd_ref, (p, q_niels)),
-        "add": (fused.add, fused.add_ref, (p, q)),
-        "double": (fused.double, fused.double_ref, (p,)),
-    }
-    n = shape[0] * shape[1]
-    for name, (kern, ref, args) in cases.items():
-        got = kern(*args)
-        want = limb.canon(limb.FP, ref(*args))
-        err = int((got - want).abs().max())
-        if err:
-            fail(f"{name} disagrees with its plain version (max abs err {err})")
-        ms = cuda_ms(lambda: kern(*args), 20)
-        plain = cuda_ms(lambda: ref(*args), 3)
-        bms, by = bound_ms(n * POINT_BYTES[name], n * FIELD_MULS[name] * OPS_PER_FIELD_MUL)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-        print(f"K {name}: max abs err 0 (tolerance 0) on {n} points, "
-              f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
-    check_scans(dev, rand, results)
-    return results
+    def product(ctx, label, a, b):
+        rows = a.numel() // nl
+        ops = OPS_PER_FIELD_SQR if a is b else OPS_PER_FIELD_MUL
+        checks.case(f"mul_rows_{ctx.name}", f"{label}, {rows} rows",
+                    lambda: fused.mul_rows(ctx, a, b), lambda: fused.mul_rows_ref(ctx, a, b),
+                    ctx, rows * (2 if a is b else 3) * FE_BYTES, rows * ops, 50, 3)
+
+    # first the shape at which the main path launches K1 mod p: the products
+    # of the verifier's decompression (the kernels line keeps a kernel's first case)
+    a, b = operands((16, 41))
+    product(limb.FP, "decompression", a, b)
+    for ctx in (limb.FP, limb.FL):
+        a, b = operands(ROWS)
+        product(ctx, "product", a, b)
+        product(ctx, "square", a, a)
+        # an operand that starts 84 bytes past a 16-byte boundary: right, not refused
+        wide = checks.rand((ROWS[0] * ROWS[1] + 1, nl))
+        wide[1] = 8192
+        if wide[1:].data_ptr() % 16 == 0 or not wide[1:].is_contiguous():
+            fail("the sliced operand was meant to be contiguous and off the 16-byte grid")
+        product(ctx, "operand sliced from row 1", wide[1:], b.view(-1, nl))
+
+    x = checks.rand((VERIFY_POINTS, nl))
+    x[0], x[1] = 8192, 0
+    x[2] = torch.from_numpy(limb.int_to_limbs(1)).to(checks.dev)
+    for k in SQR_CHAIN_K:
+        checks.case("sqr_chain", f"{VERIFY_POINTS} rows, k = {k}",
+                    lambda: fused.sqr_chain(limb.FP, x, k),
+                    lambda: fused.sqr_chain_ref(limb.FP, x, k), limb.FP,
+                    VERIFY_POINTS * 2 * FE_BYTES, VERIFY_POINTS * k * OPS_PER_FIELD_SQR, 50)
 
 
-def check_scans(dev, rand, results) -> None:
-    """The 32-step scan kernels at the main path's shapes, padded to whole
-    blocks with identity items exactly as ops/msm.py pads them."""
+def check_points(checks) -> None:
+    """K3, K4 and the doubling chain; identity and all-8192 rows included."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb
+
+    def points(n):
+        p = checks.rand((n, 4, limb.NLIMBS))
+        p[0] = 8192
+        p[1] = edwards.identity(device=checks.dev)
+        return p
+
+    n = 16 * SCAN_WIDTH
+    p, q = points(n), points(n)
+    checks.case("add", f"{n} points", lambda: fused.add(p, q), lambda: fused.add_ref(p, q),
+                limb.FP, n * POINT_BYTES["add"], n * OPS_PER_ADD, 20, 3)
+    step_ms = {}
+    for n, label in ((16, "Horner step"), (VERIFY_POINTS, "a step of the verifier's chain"),
+                     (16 * SCAN_WIDTH, "a bucket-scan step's width")):
+        p = points(n)
+        step_ms[n] = checks.case(
+            "double", f"{label}, {n} points", lambda: fused.double(p),
+            lambda: fused.double_ref(p), limb.FP, n * POINT_BYTES["double"],
+            n * OPS_PER_DOUBLE, 50, 3)
+    doubles = (WINDOWS - 1) * WINDOW_STEPS
+    for n, label in ((VERIFY_POINTS, "verifier"), (TABLE_POINTS, "generator tables")):
+        p = points(n)
+        ms = checks.case(
+            "double_chain", f"{label}, {n} points x {WINDOWS} windows x {WINDOW_STEPS} steps",
+            lambda: fused.double_chain(p, WINDOWS, WINDOW_STEPS),
+            lambda: fused.double_chain_ref(p, WINDOWS, WINDOW_STEPS), limb.FP,
+            n * (1 + WINDOWS) * 4 * FE_BYTES,
+            # T is needed only of the WINDOWS - 1 doublings whose point is stored
+            n * (doubles * OPS_PER_DOUBLE_XYZ + (WINDOWS - 1) * OPS_PER_FIELD_MUL), 10)
+        if n in step_ms:
+            print(f"  {doubles} one-step doubles at {n} points would take "
+                  f"{doubles} x {step_ms[n]:.4f} = {doubles * step_ms[n]:.3f} ms; "
+                  f"the chain takes {ms:.4f} ms", flush=True)
+
+
+def check_scans(checks) -> None:
+    """The scan kernels at the main path's shapes, padded to whole blocks
+    with identity items exactly as ops/msm.py pads them."""
     from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb, msm
 
     def items(shape, niels):
-        x = rand((*shape, 4, limb.NLIMBS))
-        ident = (edwards.identity_niels if niels else edwards.identity)(device=dev)
+        x = checks.rand((*shape, 4, limb.NLIMBS))
+        ident = (edwards.identity_niels if niels else edwards.identity)(device=checks.dev)
         flat = x.view(-1, x.shape[-3], 4, limb.NLIMBS)
         flat[0, 0] = 8192  # the largest rows the plain engine hands over
         flat[0, 1] = ident
         flat[-1, 33:40] = ident  # a run of identities inside one block
         return msm._blocked(x, niels=niels)[0]
 
-    for name, label, shape, niels, reps in SCAN_CASES:
+    for name, label, shape, niels, R, reps in SCAN_CASES:
         x = items(shape, niels)
         kern, ref = getattr(fused, name), getattr(fused, name + "_ref")
-        got, want = kern(x, BLOCK_R), ref(x, BLOCK_R)
-        if name == "add_total":
-            got, want = (got,), (want,)
-        err = 0
-        for g, w in zip(got, want):
-            if g.shape != w.shape:
-                fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
-            err = max(err, int((g - limb.canon(limb.FP, w)).abs().max()))
-        if err:
-            fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
-        del got, want, g, w
-        ms = cuda_ms(lambda: kern(x, BLOCK_R), reps)
-        plain = cuda_ms(lambda: ref(x, BLOCK_R), 1)
         n = x.numel() // (4 * limb.NLIMBS)
-        bms, by = bound_ms(n * SCAN_BYTES[name], n * SCAN_FIELD_MULS[name] * OPS_PER_FIELD_MUL)
-        print(f"K {name} ({label}): max abs err 0 (tolerance 0) on {n} items in "
-              f"{n // BLOCK_R} blocks of {BLOCK_R}, kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})", flush=True)
-        # the kernels line carries each scan at its first (largest) shape
-        results.setdefault(name, dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bms, bound_by=by))
+        prefix_rows = 0 if name == "add_total" else 4
+        n_bytes = (n * (SCAN_ITEM_ROWS[name] + prefix_rows) + n // R * 4) * FE_BYTES
+        checks.case(name, f"{label}, {n} items in {n // R} blocks of {R}",
+                    lambda: kern(x, R), lambda: ref(x, R), limb.FP, n_bytes,
+                    n * SCAN_FIELD_MULS[name] * OPS_PER_FIELD_MUL, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +480,12 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
         fail("B=16 profiled round trip did not verify")
     print(profiling.report(), flush=True)
     print(f"launches in that round trip: {counts}", flush=True)
-    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
+    missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    over = {k: counts[k] for k, limit in LAUNCH_LIMITS.items() if counts[k] > limit}
+    if over:
+        fail(f"launches that the chains should have taken over: {over} (limits {LAUNCH_LIMITS})")
     return counts, s_per_op
 
 
@@ -413,8 +518,8 @@ def main() -> None:
         line.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
         })
     print(f"s/op at B=16: median {np.median(s_per_op)} over {TIMED_TRIPS} round trips")
     print(json.dumps({"kernels": line}))

@@ -1,10 +1,11 @@
-// Field arithmetic mod p = 2^255 - 19 for the point kernels (K2 madd, K3 add
-// and the bucket-scan kernels built on them), one element per thread.
+// Field arithmetic mod p = 2^255 - 19 for every mod-p kernel: the point
+// kernels (K2 madd, K3 add, K4 double, the bucket scans, the doubling chain)
+// and the row kernels (K1 mul_rows mod p, the squaring chain), one element
+// per thread.
 //
-// Replaces, for those kernels, the 21-limb engine of field25519.cuh, which
-// itself stood in for the limb planes of the Pallas kernels
-// (dusk_blindbidproof_tpu/ops/fused.py, `_build_planes`).  field25519.cuh
-// stays for K1 (both moduli) and K4.
+// Replaces the limb planes of the Pallas kernels
+// (dusk_blindbidproof_tpu/ops/fused.py, `_build_planes` and, for mod p,
+// `_build_scalar_mul`).  K1 mod l runs on sc25519.cuh.
 //
 // What bounds a point kernel on the H100 is not memory (a point is 336
 // bytes) but the integer pipe and the registers: with 21 limbs of 13 bits a
@@ -40,8 +41,11 @@
 // to about 2^273), canonical on output (limbs < 2^13, value < p).  fe_load
 // carries to strict 13-bit limbs, repacks the bits and folds what lies at
 // or above bit 255 with 19; fe_store_canon reduces fully to [0, p) and
-// repacks.  Rows are read and written as 16-byte vectors where the row's
-// alignment inside its 336-byte point allows (a point is 21 vectors).
+// repacks.  Rows of a point are read and written as 16-byte vectors where
+// the row's alignment inside its 336-byte point allows (a point is 21
+// vectors): fe_load<ROW> / fe_store_canon<ROW>.  A [n, 21] row is 84 bytes
+// and aligned to 4 only: the row kernels copy a block's rows through shared
+// memory and use the row form, fe_load_row / fe_store_row.
 //
 // tests/test_torch_field_model.py holds a word-for-word Python model of this
 // header against Python integers.
@@ -79,25 +83,14 @@ __host__ __device__ constexpr uint32_t fe_two_p(int i) {
 __device__ __forceinline__ Fe fe_zero() { return Fe{{0, 0, 0, 0, 0, 0, 0, 0, 0, 0}}; }
 __device__ __forceinline__ Fe fe_one() { return Fe{{1, 0, 0, 0, 0, 0, 0, 0, 0, 0}}; }
 
-// Row `ROW` (0..3) of the point at `item` (16-byte aligned) -> class R.
-template <int ROW>
-__device__ __forceinline__ Fe fe_load(const int4* __restrict__ item) {
-  constexpr int w0 = kRowWords * ROW, q0 = w0 / 4, q1 = (w0 + kRowWords - 1) / 4;
-  uint32_t w[4 * (q1 - q0 + 1)];
-#pragma unroll
-  for (int k = q0; k <= q1; ++k) {
-    const int4 q = __ldg(item + k);
-    w[4 * (k - q0) + 0] = (uint32_t)q.x;
-    w[4 * (k - q0) + 1] = (uint32_t)q.y;
-    w[4 * (k - q0) + 2] = (uint32_t)q.z;
-    w[4 * (k - q0) + 3] = (uint32_t)q.w;
-  }
+// The 21 words of one row in memory (each in [0, 8192]) -> class R.
+__device__ __forceinline__ Fe fe_from_words(const uint32_t* __restrict__ w) {
   // strict 13-bit limbs; `acc` ends as the bit of weight 2^273
   uint32_t s[kRowWords];
   uint32_t acc = 0;
 #pragma unroll
   for (int j = 0; j < kRowWords; ++j) {
-    acc += w[w0 - 4 * q0 + j];
+    acc += w[j];
     s[j] = acc & 0x1FFFu;
     acc >>= 13;
   }
@@ -116,6 +109,29 @@ __device__ __forceinline__ Fe fe_load(const int4* __restrict__ item) {
   x.v[1] += x.v[0] >> 26;
   x.v[0] &= fe_mask(0);
   return x;
+}
+
+// Row `ROW` (0..3) of the point at `item` (16-byte aligned) -> class R.
+template <int ROW>
+__device__ __forceinline__ Fe fe_load(const int4* __restrict__ item) {
+  constexpr int w0 = kRowWords * ROW, q0 = w0 / 4, q1 = (w0 + kRowWords - 1) / 4;
+  uint32_t w[4 * (q1 - q0 + 1)];
+#pragma unroll
+  for (int k = q0; k <= q1; ++k) {
+    const int4 q = __ldg(item + k);
+    w[4 * (k - q0) + 0] = (uint32_t)q.x;
+    w[4 * (k - q0) + 1] = (uint32_t)q.y;
+    w[4 * (k - q0) + 2] = (uint32_t)q.z;
+    w[4 * (k - q0) + 3] = (uint32_t)q.w;
+  }
+  return fe_from_words(w + (w0 - 4 * q0));
+}
+
+// Row form: a [n, 21] row that the block has copied into shared memory (the
+// rows of a tile lie 21 words apart, an odd stride, so a warp's 32 reads of
+// word j fall into 32 different banks).
+__device__ __forceinline__ Fe fe_load_row(const uint32_t* __restrict__ row) {
+  return fe_from_words(row);
 }
 
 // Limbwise sum; limbs add (R + R < 2 R).
@@ -238,13 +254,9 @@ __device__ __forceinline__ Fe fe_canon(const Fe& a) {
   return x;
 }
 
-// Canonical row `ROW` of the point at `item` (16-byte aligned): 21 limbs of
-// 13 bits, written as single words up to the next 16-byte boundary, then as
-// vectors, then the rest as words.
-template <int ROW>
-__device__ __forceinline__ void fe_store_canon(int32_t* __restrict__ item, const Fe& a) {
+// Class R -> the row's 21 canonical limbs of 13 bits.
+__device__ __forceinline__ void fe_to_words(const Fe& a, uint32_t* __restrict__ s) {
   const Fe h = fe_canon(a);
-  uint32_t s[kRowWords];
 #pragma unroll
   for (int j = 0; j < kRowWords - 1; ++j) {
     const int i = fe_limb_of(13 * j), sh = 13 * j - fe_off(i);
@@ -254,6 +266,15 @@ __device__ __forceinline__ void fe_store_canon(int32_t* __restrict__ item, const
     s[j] = (uint32_t)(win >> sh) & 0x1FFFu;
   }
   s[kRowWords - 1] = 0;  // bits 260..272 of a value < 2^255
+}
+
+// Canonical row `ROW` of the point at `item` (16-byte aligned): 21 limbs of
+// 13 bits, written as single words up to the next 16-byte boundary, then as
+// vectors, then the rest as words.
+template <int ROW>
+__device__ __forceinline__ void fe_store_canon(int32_t* __restrict__ item, const Fe& a) {
+  uint32_t s[kRowWords];
+  fe_to_words(a, s);
   constexpr int w0 = kRowWords * ROW, head = (4 - w0 % 4) % 4;
   constexpr int nq = (kRowWords - head) / 4, tail = kRowWords - head - 4 * nq;
 #pragma unroll
@@ -266,6 +287,11 @@ __device__ __forceinline__ void fe_store_canon(int32_t* __restrict__ item, const
 #pragma unroll
   for (int j = 0; j < tail; ++j)
     item[w0 + head + 4 * nq + j] = (int32_t)s[head + 4 * nq + j];
+}
+
+// Row form: the canonical row into the block's tile in shared memory.
+__device__ __forceinline__ void fe_store_row(uint32_t* __restrict__ row, const Fe& a) {
+  fe_to_words(a, row);
 }
 
 }  // namespace fe25519

@@ -11,8 +11,10 @@ combines require):
   * madd:   madd-2008-hwcd-3 against affine-Niels rows (7M)
   * double: dbl-2008-hwcd (4M + 4S)
 
-`add`, `add_niels` and `double` launch the hand-written kernels
-(ops.fused) for CUDA tensors and run their plain versions for CPU tensors.
+`add` and `double` launch the hand-written kernels (ops.fused) for CUDA
+tensors and run their plain versions for CPU tensors.  The mixed add is
+the leaf of the bucket scan `fused.madd_scan`; `add_niels_impl` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -81,11 +83,6 @@ def to_host(pts: torch.Tensor) -> list[host.EdwardsPoint]:
 def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Unified extended addition (K3 on CUDA)."""
     return fused.add(*fused.kernel_operands(p, q))
-
-
-def add_niels(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Mixed add: p extended + q affine-Niels -> extended (K2 on CUDA)."""
-    return fused.madd(*fused.kernel_operands(p, q))
 
 
 def double(p: torch.Tensor) -> torch.Tensor:

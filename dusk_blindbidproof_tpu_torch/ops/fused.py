@@ -2,27 +2,33 @@
 plain PyTorch versions.
 
 The kernels of csrc/edwards_kernels.cu replace the JAX package's four
-Pallas kernels, and the 32-step loops that drove two of them:
+Pallas kernels, and the loops that drove them:
 
     K1 mul_rows   a*b mod p or mod l on [..., 21] limb rows
-    K2 madd       extended + affine-Niels point add (7M), the bucket-scan leaf
+    sqr_chain     x^(2^k) mod p, k squarings of K1 inside one launch
     K3 add        unified extended point add (9M)
-    K4 double     extended point doubling (4M + 4S)
-    madd_scan     R-step inclusive scan of every block of R Niels items (K2 leaf)
+    K4 double     extended point doubling (4S + 4M)
+    double_chain  2^(steps w) P for every window w, K4 inside one launch
+    madd_scan     R-step inclusive scan of every block of R Niels items; its
+                  leaf is K2 madd, extended + affine-Niels (7M)
     add_scan      the same over extended points (K3 leaf)
     add_total     the R-item block sums alone (K3 leaf)
 
-K1 and K4 run on csrc/field25519.cuh (21 limbs of 13 bits); K2, K3 and the
-scans on csrc/fe25519.cuh (10 limbs of 26/25 bits inside the kernel; the
-tensors keep the 21-limb layout).
+Everything mod p runs on csrc/fe25519.cuh (10 limbs of 26/25 bits inside the
+kernel), K1 mod l on csrc/sc25519.cuh (10 limbs of 28 bits); the tensors keep
+the 21-limb layout.  K2 has no one-step entry: every madd of the port is a
+step of `madd_scan`, and `madd_ref` is that scan's plain leaf.
 
 Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
-`madd_ref`, `add_ref`, `double_ref`, `madd_scan_ref`, `add_scan_ref`,
-`add_total_ref`) and a CUDA tensor to its kernel, or raises: nothing falls
-back from the kernel to the plain version.  A CUDA
-wrapper checks device, dtype, shape and contiguity, allocates its output
-with torch.empty, launches on the current stream, raises on the returned
-cudaGetLastError() code, and adds one to its launch count.
+`sqr_chain_ref`, `add_ref`, `double_ref`, `double_chain_ref`,
+`madd_scan_ref`, `add_scan_ref`, `add_total_ref`) and a CUDA tensor to its
+kernel, or raises: nothing falls back from the kernel to the plain version.
+A CUDA wrapper checks device, dtype, shape and contiguity, allocates its
+output with torch.empty, launches on the current stream, raises on the
+returned cudaGetLastError() code, and adds one to its launch count.  The
+point kernels read 16-byte vectors and raise on an operand that is not
+aligned so; the row kernels (K1, `sqr_chain`) take any int32 alignment and
+copy the ragged head and tail of a block's rows word by word.
 
 Kernel inputs are limbs in [0, 8192] (any std-form or strict value);
 kernel outputs are canonical (limbs < 2^13, value < M), which is a valid
@@ -43,14 +49,13 @@ import subprocess
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from . import limb
-from .limb import FL, FP, NLIMBS
+from .limb import FP, NLIMBS
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("edwards_kernels.cu", "field25519.cuh", "fe25519.cuh")
+_SOURCES = ("edwards_kernels.cu", "fe25519.cuh", "sc25519.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,7 +63,7 @@ NVCC_FLAGS = (
 )
 
 # one launch count per kernel entry point; K1 counts each modulus apart
-KERNELS = ("mul_rows_fp", "mul_rows_fl", "madd", "add", "double",
+KERNELS = ("mul_rows_fp", "mul_rows_fl", "sqr_chain", "add", "double", "double_chain",
            "madd_scan", "add_scan", "add_total")
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_SECONDS = None  # wall time of this process's nvcc build, if it ran one
@@ -131,43 +136,29 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bb_init_constants.argtypes = [vp, ll]
+        lib.bb_init.argtypes = []
         lib.bb_mul_rows.argtypes = [ci, vp, vp, vp, ll, vp]
+        lib.bb_sqr_chain.argtypes = [vp, vp, ll, ci, vp]
         lib.bb_point_add.argtypes = [vp, vp, vp, ll, vp]
-        lib.bb_point_madd.argtypes = [vp, vp, vp, ll, vp]
         lib.bb_point_double.argtypes = [vp, vp, ll, vp]
+        lib.bb_double_chain.argtypes = [vp, vp, ll, ci, ci, vp]
         lib.bb_point_scan.argtypes = [ci, ci, vp, vp, vp, ll, ci, vp]
-        for fn in (lib.bb_init_constants, lib.bb_mul_rows, lib.bb_point_add,
-                   lib.bb_point_madd, lib.bb_point_double, lib.bb_point_scan):
+        for fn in (lib.bb_init, lib.bb_mul_rows, lib.bb_sqr_chain, lib.bb_point_add,
+                   lib.bb_point_double, lib.bb_double_chain, lib.bb_point_scan):
             fn.restype = ci
         _LIB = lib
     return _LIB
 
 
-def mod_constants(ctx: limb.ModContext) -> np.ndarray:
-    """One `BbModConst` table (csrc/field25519.cuh) as int32 words."""
-    bias_k = -(-(1 << (limb.LIMB_BITS * NLIMBS)) // ctx.modulus)
-    sb_limb, sb_off = divmod(ctx.split_bit, limb.LIMB_BITS)
-    return np.concatenate([
-        ctx.fold_rows[:NLIMBS].reshape(-1),
-        ctx.mod_limbs,
-        ctx.canon_row,
-        limb.int_to_limbs(bias_k * ctx.modulus, NLIMBS + 1),
-        np.array([sb_limb, sb_off, int(ctx.canon_neg)]),
-    ]).astype(np.int32)
-
-
 def _ready(device: torch.device):
-    """The bound library, with its constant tables uploaded to `device`."""
+    """The bound library, with the kernels' shared-memory preference set on
+    `device` (the kernels carry their constants in the code)."""
     lib = _lib()
     if device.index not in _READY_DEVICES:
-        mods = np.ascontiguousarray(
-            np.concatenate([mod_constants(FP), mod_constants(FL)])
-        )
         with torch.cuda.device(device):
-            rc = lib.bb_init_constants(mods.ctypes.data, mods.size)
+            rc = lib.bb_init()
         if rc != 0:
-            raise RuntimeError(f"bb_init_constants failed with code {rc}")
+            raise RuntimeError(f"bb_init failed with code {rc}")
         _READY_DEVICES.add(device.index)
     return lib
 
@@ -185,7 +176,7 @@ def kernel_operands(*xs):
 def _check(shape, *xs, vector_loads: bool = False) -> None:
     """Raise unless every operand is what the kernels take: int32,
     contiguous, of `shape`, on one CUDA device; the kernels that read
-    16-byte vectors (K2, K3 and the scans) also need that alignment."""
+    16-byte vectors (the point kernels) also need that alignment."""
     dev = xs[0].device
     for x in xs:
         if x.device.type != "cuda" or x.device != dev:
@@ -212,7 +203,7 @@ def _stream(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: modular product of limb rows
+# K1: modular product of limb rows, and the squaring chain
 # ---------------------------------------------------------------------------
 
 
@@ -221,14 +212,19 @@ def mul_rows_ref(ctx: limb.ModContext, a: torch.Tensor, b: torch.Tensor) -> torc
     return limb.lb_mul(ctx, limb.wrap(a), limb.wrap(b)).x
 
 
+def _rows_shape(name: str, shape) -> None:
+    if shape[-1:] != (NLIMBS,):
+        raise ValueError(f"{name} takes [..., {NLIMBS}] limb rows, got {tuple(shape)}")
+
+
 def mul_rows(ctx: limb.ModContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b mod M on [..., NLIMBS] rows: K1 for CUDA tensors (same shape,
-    contiguous; canonical output), the plain version for CPU tensors."""
+    contiguous, any int32 alignment; canonical output), the plain version for
+    CPU tensors.  Mod p, passing one tensor twice takes the kernel's square."""
     if not (a.is_cuda or b.is_cuda):
         return mul_rows_ref(ctx, a, b)
     shape = a.shape
-    if shape[-1:] != (NLIMBS,):
-        raise ValueError(f"mul_rows takes [..., {NLIMBS}] limb rows, got {tuple(shape)}")
+    _rows_shape("mul_rows", shape)
     _check(shape, a, b)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     n = out.numel() // NLIMBS
@@ -240,8 +236,38 @@ def mul_rows(ctx: limb.ModContext, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     return out
 
 
+def sqr_chain_ref(ctx: limb.ModContext, x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of `sqr_chain`: k steps of `mul_rows_ref`."""
+    if k < 1:
+        raise ValueError(f"sqr_chain takes k >= 1 squarings, got {k}")
+    for _ in range(k):
+        x = mul_rows_ref(ctx, x, x)
+    return x
+
+
+def sqr_chain(ctx: limb.ModContext, x: torch.Tensor, k: int) -> torch.Tensor:
+    """x^(2^k) mod p on [..., NLIMBS] rows, k >= 1: one kernel launch on a CUDA
+    tensor (mod p only; canonical output), `sqr_chain_ref` on a CPU tensor."""
+    if not x.is_cuda:
+        return sqr_chain_ref(ctx, x, k)
+    if ctx.name != "fp":
+        raise ValueError("the sqr_chain kernel is mod p only")
+    if k < 1:
+        raise ValueError(f"sqr_chain takes k >= 1 squarings, got {k}")
+    _rows_shape("sqr_chain", x.shape)
+    _check(x.shape, x)
+    out = torch.empty_like(x)
+    n = out.numel() // NLIMBS
+    if n:
+        lib = _ready(x.device)
+        _launch("sqr_chain", lib.bb_sqr_chain, x.data_ptr(), out.data_ptr(), n, k,
+                _stream(x.device))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# K2-K4: Edwards point ops on [..., 4, NLIMBS] rows (X, Y, Z, T)
+# K3, K4 and the doubling chain on [..., 4, NLIMBS] rows (X, Y, Z, T); K2's
+# plain version, the leaf of `madd_scan_ref`
 # ---------------------------------------------------------------------------
 
 
@@ -272,8 +298,8 @@ def add_ref(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def madd_ref(p: torch.Tensor, q_niels: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: p extended + q affine-Niels (y-x, y+x, 2d*xy),
-    madd-2008-hwcd-3 (7M)."""
+    """Plain version of K2, one step of `madd_scan_ref`: p extended + q
+    affine-Niels (y-x, y+x, 2d*xy), madd-2008-hwcd-3 (7M)."""
     x1, y1, z1, t1 = p[..., 0, :], p[..., 1, :], p[..., 2, :], p[..., 3, :]
     a2, b2, c2 = q_niels[..., 0, :], q_niels[..., 1, :], q_niels[..., 2, :]
     a = _fmul(limb.sub(FP, y1, x1), a2)
@@ -305,7 +331,7 @@ def _point_op(name: str, fn_name: str, *xs) -> torch.Tensor:
     shape = xs[0].shape
     if tuple(shape[-2:]) != (4, NLIMBS):
         raise ValueError(f"point ops take [..., 4, {NLIMBS}] rows, got {tuple(shape)}")
-    _check(shape, *xs, vector_loads=name != "double")
+    _check(shape, *xs, vector_loads=True)
     out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
     n = out.numel() // (4 * NLIMBS)
     if n:
@@ -323,18 +349,47 @@ def add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return _point_op("add", "bb_point_add", p, q)
 
 
-def madd(p: torch.Tensor, q_niels: torch.Tensor) -> torch.Tensor:
-    """K2 on CUDA tensors, `madd_ref` on CPU tensors."""
-    if not (p.is_cuda or q_niels.is_cuda):
-        return madd_ref(p, q_niels)
-    return _point_op("madd", "bb_point_madd", p, q_niels)
-
-
 def double(p: torch.Tensor) -> torch.Tensor:
     """K4 on CUDA tensors, `double_ref` on CPU tensors."""
     if not p.is_cuda:
         return double_ref(p)
     return _point_op("double", "bb_point_double", p)
+
+
+def double_chain_ref(points: torch.Tensor, windows: int, steps: int) -> torch.Tensor:
+    """Plain version of `double_chain`: `steps` times `double_ref` a window."""
+    if windows < 1 or steps < 1:
+        raise ValueError(f"double_chain takes windows, steps >= 1, got {windows}, {steps}")
+    scaled = [points]
+    for _ in range(windows - 1):
+        nxt = scaled[-1]
+        for _ in range(steps):
+            nxt = double_ref(nxt)
+        scaled.append(nxt)
+    return torch.stack(scaled, dim=-3)
+
+
+def double_chain(points: torch.Tensor, windows: int, steps: int) -> torch.Tensor:
+    """[..., 4, NLIMBS] points -> [..., windows, 4, NLIMBS] with
+    out[..., w, :, :] = 2^(steps w) P.  One kernel launch on a CUDA tensor (a
+    thread doubles its point in registers and writes one point a window),
+    `double_chain_ref` on a CPU tensor."""
+    if not points.is_cuda:
+        return double_chain_ref(points, windows, steps)
+    shape = points.shape
+    if tuple(shape[-2:]) != (4, NLIMBS):
+        raise ValueError(f"point ops take [..., 4, {NLIMBS}] rows, got {tuple(shape)}")
+    if windows < 1 or steps < 1:
+        raise ValueError(f"double_chain takes windows, steps >= 1, got {windows}, {steps}")
+    _check(shape, points, vector_loads=True)
+    out = torch.empty((*shape[:-2], windows, 4, NLIMBS), dtype=torch.int32,
+                      device=points.device)
+    n = points.numel() // (4 * NLIMBS)
+    if n:
+        lib = _ready(points.device)
+        _launch("double_chain", lib.bb_double_chain, points.data_ptr(), out.data_ptr(),
+                n, windows, steps, _stream(points.device))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -546,6 +546,11 @@ def mul(ctx: ModContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def sqr(ctx: ModContext, a: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda:  # one operand, handed over twice: the kernel takes its square
+        from . import fused
+
+        (a,) = fused.kernel_operands(a)
+        return fused.mul_rows(ctx, a, a)
     return mul(ctx, a, a)
 
 

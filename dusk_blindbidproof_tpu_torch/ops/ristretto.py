@@ -3,7 +3,7 @@ field inversion chains they need.
 
 The exponentiation x^(2^252 - 3) uses the standard ed25519 addition chain
 (252 squarings + 11 multiplies): a fixed schedule, no data-dependent
-control flow.  The verifier decompresses the proof's points here.
+control flow; on CUDA tensors its nine runs of squarings are nine launches.  The verifier decompresses the proof's points here.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import curve_host as host
-from . import edwards, limb
+from . import edwards, fused, limb
 from .limb import FP
 
 _SQRT_M1 = limb.int_to_limbs(host.SQRT_M1)
@@ -21,6 +21,10 @@ _ONE = limb.int_to_limbs(1)
 
 
 def _pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x^(2^k): runs of two or more squarings are one launch of the squaring
+    chain on CUDA tensors."""
+    if k >= 2:
+        return fused.sqr_chain(FP, *fused.kernel_operands(x), k)
     for _ in range(k):
         x = limb.sqr(FP, x)
     return x

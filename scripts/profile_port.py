@@ -3,8 +3,9 @@
     python3 scripts/profile_port.py [--batch 16] [--out chiprun_out/profile_port.json]
 
 Runs one warm-up prove+verify round trip of the PyTorch port, then one under
-torch.profiler (CPU and CUDA activities).  Prints the kernels by device time,
-the device-busy share of the profiled wall time, and writes both as JSON.
+torch.profiler (CPU and CUDA activities).  Prints the kernels by device time
+(the 25 largest, then every hand-written kernel), the device-busy share of
+the profiled wall time, and writes all of it as JSON.
 Needs a CUDA card; the numbers come from that card only.
 """
 
@@ -23,6 +24,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (request builders shared with the smoke run)
+
+# entry functions of csrc/edwards_kernels.cu, as the profiler names them
+OWN_KERNELS = ("point_step_kernel", "point_scan_kernel", "point_double_kernel",
+               "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel")
 
 
 def main() -> None:
@@ -61,6 +66,8 @@ def main() -> None:
     ]
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
+    # the hand-written kernels, however small their share
+    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
     summary = {
         "card": torch.cuda.get_device_name(0),
         "batch": args.batch,
@@ -68,10 +75,14 @@ def main() -> None:
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3) if rows else None,
         "kernels": rows[:25],
+        "own_kernels": own,
     }
     print(f"profiled round trip: {wall:.4f} s wall, device busy {busy_ms:.1f} ms "
           f"({summary['device_busy_share']})")
     for r in rows[:25]:
+        print(f"{r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}")
+    print(f"the port's own kernels: {sum(r['device_ms'] for r in own):.3f} ms")
+    for r in own:
         print(f"{r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -15,6 +15,7 @@ import torch
 from dusk_blindbidproof_tpu.ops import edwards as je
 from dusk_blindbidproof_tpu.ops import fused as jf
 from dusk_blindbidproof_tpu_torch.ops import edwards as te
+from dusk_blindbidproof_tpu_torch.ops import fused as tf
 from dusk_blindbidproof_tpu_torch.ops import limb as tl
 from dusk_blindbidproof_tpu_torch.utils import curve_host as host
 
@@ -71,7 +72,13 @@ def test_host_points_roundtrip_and_group_law():
     assert te.to_host(te.double(dev[:1]))[0].affine() == pts[1].affine()
     assert te.to_host(te.add(dev[1:2], dev[:1]))[0].affine() == pts[2].affine()
     niels = te.to_niels(dev[:1])
-    assert te.to_host(te.add_niels(dev[1:2], niels))[0].affine() == pts[2].affine()
+    assert te.to_host(tf.madd_ref(dev[1:2], niels))[0].affine() == pts[2].affine()
+    # the same mixed add as the last step of a two-item bucket scan
+    ident = te.to_niels(te.identity((1,)))
+    within, totals = tf.madd_scan(torch.cat([te.to_niels(dev[1:2]), niels]), 2)
+    assert te.to_host(totals)[0].affine() == pts[2].affine()
+    assert te.to_host(within[:1])[0].affine() == pts[1].affine()
+    assert te.eq_points(tf.madd_ref(dev, ident), dev).all()
     assert te.eq_points(te.add(dev, te.negate(dev)), te.identity((4,))).all()
 
 

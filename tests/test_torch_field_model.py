@@ -1,13 +1,15 @@
 """Word-for-word Python model of csrc/fe25519.cuh (the 10-limb mod-p core of
-the K2 / K3 / scan kernels) against Python integers.
+every mod-p kernel) against Python integers.
 
 The CUDA header cannot run on the CPU; its arithmetic can.  Every function
 below mirrors one device function statement by statement, on Python ints
 that stand for 32-bit and 64-bit words: `u32` / `u64` assert that a value a
 C word would hold has not wrapped (stronger than masking: the header relies
 on no wrap), and the casts that do drop bits are written as explicit masks.
-The point formulas of csrc/edwards_kernels.cu (pt_add, pt_madd, the R-step
-scan) are modelled on top and held to utils/curve_host.py.
+The point formulas of csrc/edwards_kernels.cu (pt_add, pt_madd, pt_double,
+the R-step scan, the doubling chain), its squaring chain and its copy of a
+block's rows through shared memory are modelled on top and held to
+utils/curve_host.py and to Python integers.
 
 The constants the model uses are read out of the header itself, so the two
 cannot drift apart.
@@ -83,7 +85,7 @@ def value(x) -> int:
 # --- the header, function by function ---------------------------------------
 
 
-def fe_load(words):
+def fe_from_words(words):
     """words: the row's 21 int32 limbs, each in [0, 8192]."""
     s, acc = [0] * ROW, 0
     for j in range(ROW):
@@ -100,6 +102,9 @@ def fe_load(words):
     x[1] = u32(x[1] + (x[0] >> 26))
     x[0] &= fe_mask(0)
     return x
+
+
+fe_load = fe_load_row = fe_from_words  # the header's two ways to fetch the words
 
 
 def fe_add(a, b):
@@ -186,7 +191,7 @@ def fe_canon(a):
     return x
 
 
-def fe_store_canon(a):
+def fe_to_words(a):
     """-> the row's 21 canonical 13-bit limbs."""
     h = fe_canon(a)
     s = [0] * ROW
@@ -196,6 +201,9 @@ def fe_store_canon(a):
         win = u64(h[i] | ((h[i + 1] << fe_bits(i)) if i + 1 < NL10 else 0))
         s[j] = ((win >> sh) & 0xFFFFFFFF) & 0x1FFF
     return s
+
+
+fe_store_canon = fe_store_row = fe_to_words  # the header's two ways to place the words
 
 
 # --- csrc/edwards_kernels.cu: the point formulas on that core ---------------
@@ -239,6 +247,104 @@ def scan(step, items, R):
         acc = step(acc, items[r])
         out.append([fe_store_canon(c) for c in acc])
     return out
+
+
+def pt_double(p, with_t=True):
+    px, py, pz, _ = p
+    s = fe_sqr(fe_add(px, py))
+    a, b = fe_sqr(px), fe_sqr(py)
+    h = fe_add(a, b)
+    e = fe_carry(fe_sub(h, s))
+    g = fe_sub(a, b)
+    zz = fe_sqr(pz)
+    f = fe_carry(fe_add(fe_add(zz, zz), g))
+    t = fe_mul(e, h) if with_t else [0] * NL10
+    return [fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), t]
+
+
+def double_chain(point_rows, windows, steps):
+    """double_chain_kernel for one thread: a canonical point a window."""
+    acc = [fe_load(r) for r in point_rows]
+    out = [[fe_store_canon(c) for c in acc]]
+    for _ in range(1, windows):
+        for _ in range(1, steps):
+            acc = pt_double(acc, with_t=False)
+        acc = pt_double(acc)
+        out.append([fe_store_canon(c) for c in acc])
+    return out
+
+
+def sqr_chain(words, k):
+    """sqr_chain_kernel for one thread."""
+    z = fe_load_row(words)
+    for _ in range(k):
+        z = fe_sqr(z)
+    return fe_store_row(z)
+
+
+# the row kernels' tile: 128 rows of 21 words through shared memory
+
+ROW_THREADS = 128
+TILE_WORDS = ROW_THREADS * ROW
+
+
+def tile_mis(addr):
+    """addr: a byte address, a multiple of 4."""
+    return (addr >> 2) & 3
+
+
+def _tile_split(addr, nwords):
+    mis = tile_mis(addr)
+    head = (4 - mis) & 3
+    nvec = (nwords - head) >> 2
+    return mis, head, nvec, head + 4 * nvec
+
+
+def tile_load(memory, addr, nwords):
+    """memory: word-addressed list standing for device memory; the tile
+    starts at byte `addr`.  Vector accesses assert their 16-byte alignment on
+    both sides.  -> the shared array (TILE_WORDS + 4 words, None = unwritten)."""
+    sh = [None] * (TILE_WORDS + 4)
+    g = addr >> 2
+    mis, head, nvec, tail = _tile_split(addr, nwords)
+    for t in range(ROW_THREADS):
+        if t < head:
+            sh[mis + t] = memory[g + t]
+        for k in range(t, nvec, ROW_THREADS):
+            assert (addr + 4 * (head + 4 * k)) % 16 == 0 and (mis + head + 4 * k) % 4 == 0
+            for c in range(4):
+                sh[mis + head + 4 * k + c] = memory[g + head + 4 * k + c]
+        if t < nwords - tail:
+            sh[mis + tail + t] = memory[g + tail + t]
+    return sh
+
+
+def tile_store(memory, addr, sh, nwords):
+    g = addr >> 2
+    mis, head, nvec, tail = _tile_split(addr, nwords)
+    for t in range(ROW_THREADS):
+        if t < head:
+            memory[g + t] = sh[mis + t]
+        for k in range(t, nvec, ROW_THREADS):
+            assert (addr + 4 * (head + 4 * k)) % 16 == 0 and (mis + head + 4 * k) % 4 == 0
+            for c in range(4):
+                memory[g + head + 4 * k + c] = sh[mis + head + 4 * k + c]
+        if t < nwords - tail:
+            memory[g + tail + t] = sh[mis + tail + t]
+
+
+def mul_rows_block(memory, a_addr, b_addr, out_addr, rows, elem_load, elem_mul, elem_store):
+    """mul_rows_kernel for one block of `rows` <= 128 rows."""
+    ta = tile_load(memory, a_addr, rows * ROW)
+    tb = tile_load(memory, b_addr, rows * ROW)
+    z = []
+    for t in range(rows):
+        ra, rb = tile_mis(a_addr) + t * ROW, tile_mis(b_addr) + t * ROW
+        z.append(elem_mul(elem_load(ta[ra:ra + ROW]), elem_load(tb[rb:rb + ROW])))
+    for t in range(rows):
+        ro = tile_mis(out_addr) + t * ROW
+        ta[ro:ro + ROW] = elem_store(z[t])
+    tile_store(memory, out_addr, ta, rows * ROW)
 
 
 # --- helpers ----------------------------------------------------------------
@@ -457,3 +563,114 @@ def test_point_ops_on_all_8192_rows(leaf):
     e, f, g, h = b - a, dd - c, dd + c, b + a
     want = [e * f % P, g * h % P, f * g % P, e * h % P]
     assert [from_limbs13(fe_store_canon(x)) for x in got] == want
+
+
+# --- K4 and the doubling chain -----------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_pt_double_model_vs_host(seed):
+    (p,) = _host_points(400 + seed, 1)
+    rows21 = _ext_rows(p, 3 + seed)
+    if seed == 4:
+        p, rows21 = host.EdwardsPoint.identity(), IDENTITY_ROWS
+    if seed == 5:  # T is not read
+        rows21 = rows21[:3] + [ALL_8192]
+    got = pt_double(_load_point(rows21))
+    assert all(in_class_r(c) for c in got)
+    assert _affine_of_rows([fe_store_canon(c) for c in got]) == (p + p).affine()
+    without_t = pt_double(_load_point(rows21), with_t=False)
+    assert without_t[:3] == got[:3] and without_t[3] == [0] * NL10
+
+
+def test_pt_double_on_widest_rows():
+    """All-8192 rows and the largest class-R limbs: the u32 / u64 asserts hold
+    through every intermediate, and the result is the formula's value mod p."""
+    r_max = [(1 << 26) - 1, (1 << 25) + (1 << 18) - 1] + [fe_mask(i) for i in range(2, NL10)]
+    for p in (_load_point([ALL_8192] * 4), [r_max] * 4):
+        x = y = z = value(p[0]) % P
+        a, b, c = x * x, y * y, 2 * z * z
+        h, g = a + b, a - b
+        e, f = h - (x + y) ** 2, c + g
+        want = [e * f % P, g * h % P, f * g % P, e * h % P]
+        assert [from_limbs13(fe_store_canon(v)) for v in pt_double(p)] == want
+
+
+@pytest.mark.parametrize("windows,steps", [(2, 13), (20, 13), (3, 1), (1, 13)],
+                         ids=["13-steps", "247-steps", "steps-1", "one-window"])
+def test_double_chain_model_vs_host(windows, steps):
+    (p,) = _host_points(500 + windows, 1)
+    rows21 = _ext_rows(p, 9)
+    rows21[3] = limbs13(from_limbs13(rows21[3]) + P)  # window 0 is stored canonical
+    out = double_chain(rows21, windows, steps)
+    assert len(out) == windows
+    for w, stored in enumerate(out):
+        assert _affine_of_rows(stored) == p.scalar_mul(1 << (steps * w)).affine(), w
+
+
+# --- the squaring chain -------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 50, 100])
+@pytest.mark.parametrize("name", ["0", "1", "p-1", "p", "2^273-1", "all-8192"])
+def test_sqr_chain_model_edges(name, k):
+    v = from_limbs13(EDGES[name])
+    assert from_limbs13(sqr_chain(EDGES[name], k)) == pow(v, 2**k, P)
+
+
+@settings(max_examples=50, deadline=None)
+@given(rows, st.sampled_from([2, 3, 10, 20]))
+def test_sqr_chain_model_random_rows(words, k):
+    assert sqr_chain(words, k) == limbs13(pow(from_limbs13(words), 2**k, P))
+
+
+# --- the row tile --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows_in_block", [128, 5, 1])
+@pytest.mark.parametrize("mis", range(4))
+def test_tile_copy_at_every_alignment(mis, rows_in_block):
+    """Every word of the tile arrives where thread t reads its row, nothing
+    else is touched, and every vector access is aligned on both sides."""
+    rng = random.Random(10 * mis + rows_in_block)
+    nwords = rows_in_block * ROW
+    memory = [rng.randrange(1 << 31) for _ in range(nwords + 16)]
+    addr = 4 * (4 + mis)  # the tile starts `mis` words past a 16-byte boundary
+    sh = tile_load(memory, addr, nwords)
+    g = addr >> 2
+    assert tile_mis(addr) == mis
+    assert sh[mis:mis + nwords] == memory[g:g + nwords]
+    assert all(w is None for w in sh[:mis] + sh[mis + nwords:])
+    for out_mis in range(4):
+        target = [-1] * (nwords + 16)
+        out_addr = 4 * (8 + out_mis)
+        shifted = [None] * (TILE_WORDS + 4)
+        shifted[out_mis:out_mis + nwords] = sh[mis:mis + nwords]
+        tile_store(target, out_addr, shifted, nwords)
+        o = out_addr >> 2
+        assert target[o:o + nwords] == memory[g:g + nwords]
+        assert set(target[:o] + target[o + nwords:]) == {-1}
+
+
+@pytest.mark.parametrize("a_mis,b_mis,out_mis", [(0, 0, 0), (1, 0, 0), (0, 3, 2), (2, 1, 3)])
+def test_mul_rows_block_model_mod_p(a_mis, b_mis, out_mis):
+    rng = random.Random(7)
+    rows_in_block = 9
+    nwords = rows_in_block * ROW
+    a = [[rng.randrange(8193) for _ in range(ROW)] for _ in range(rows_in_block)]
+    b = [[rng.randrange(8193) for _ in range(ROW)] for _ in range(rows_in_block)]
+    a[0], b[0], b[1] = ALL_8192, ALL_8192, limbs13(0)
+    size = 3 * (nwords + 8)
+    memory = [-1] * size
+    a_addr, b_addr = 4 * (4 + a_mis), 4 * (nwords + 12 + b_mis)
+    out_addr = 4 * (2 * nwords + 20 + out_mis)
+    memory[a_addr >> 2:(a_addr >> 2) + nwords] = [w for r in a for w in r]
+    memory[b_addr >> 2:(b_addr >> 2) + nwords] = [w for r in b for w in r]
+    before = list(memory)
+    mul_rows_block(memory, a_addr, b_addr, out_addr, rows_in_block,
+                   fe_load_row, fe_mul, fe_store_row)
+    o = out_addr >> 2
+    for t in range(rows_in_block):
+        want = from_limbs13(a[t]) * from_limbs13(b[t]) % P
+        assert memory[o + 21 * t:o + 21 * t + 21] == limbs13(want)
+    assert memory[:o] == before[:o] and memory[o + nwords:] == before[o + nwords:]

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 mul_rows, K2 madd, K3 add, K4 double and the R-step
-scans madd_scan, add_scan, add_total) against their plain PyTorch versions.
+"""The CUDA kernels (K1 mul_rows and its squaring chain, K3 add, K4 double
+and its doubling chain, and the R-step scans madd_scan (K2 leaf), add_scan,
+add_total) against their plain PyTorch versions.
 
 This file imports neither jax nor the JAX package, so it also runs on a GPU
 machine without them:
@@ -38,9 +39,10 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 300], ids=["half-block", "ragged-blocks"])
 @pytest.mark.parametrize("ctx", [limb.FP, limb.FL], ids=["fp", "fl"])
-def test_mul_rows_kernel_matches_plain(cuda, ctx):
-    a, b = _rows(1, (64, limb.NLIMBS)), _rows(2, (64, limb.NLIMBS))
+def test_mul_rows_kernel_matches_plain(cuda, ctx, n):
+    a, b = _rows(1, (n, limb.NLIMBS)), _rows(2, (n, limb.NLIMBS))
     b[1] = 0
     want = limb.canon(ctx, fused.mul_rows_ref(ctx, a, b))
     key = f"mul_rows_{ctx.name}"
@@ -51,8 +53,55 @@ def test_mul_rows_kernel_matches_plain(cuda, ctx):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", [limb.FP, limb.FL], ids=["fp", "fl"])
+def test_mul_rows_kernel_squares_one_operand(cuda, ctx):
+    """One tensor handed over twice takes the kernel's square path."""
+    a = _rows(14, (3, 50, limb.NLIMBS))
+    want = limb.canon(ctx, fused.mul_rows_ref(ctx, a, a))
+    dev = a.to(cuda)
+    assert torch.equal(fused.mul_rows(ctx, dev, dev).cpu(), want)
+    assert torch.equal(limb.sqr(ctx, dev).cpu(), want)
+    assert torch.equal(limb.sqr(ctx, dev[:, ::2]).cpu(), want[:, ::2])  # made contiguous first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", [limb.FP, limb.FL], ids=["fp", "fl"])
+@pytest.mark.parametrize("shift", [1, 2, 3], ids=lambda s: f"rows-from-{s}")
+def test_mul_rows_kernel_takes_any_int32_alignment(cuda, ctx, shift):
+    """The alignment rule of the row kernels: a contiguous [n, 21] operand
+    whose first word is not on a 16-byte boundary (a tensor sliced from row
+    1, 2 or 3: 84, 168, 252 bytes in) is right, not refused; so is an output
+    that lands on such an address."""
+    n = 200
+    a, b = _rows(15, (n + shift, limb.NLIMBS)), _rows(16, (n + shift, limb.NLIMBS))
+    want = limb.canon(ctx, fused.mul_rows_ref(ctx, a[shift:], b[:n]))
+    da, db = a.to(cuda)[shift:], b.to(cuda)[:n]
+    assert da.data_ptr() % 16 and da.is_contiguous()
+    assert torch.equal(fused.mul_rows(ctx, da, db).cpu(), want)
+    assert torch.equal(fused.mul_rows(ctx, db, da).cpu(), want)
+    want_sq = limb.canon(ctx, fused.mul_rows_ref(ctx, a[shift:], a[shift:]))
+    assert torch.equal(fused.mul_rows(ctx, da, da).cpu(), want_sq)
+    if ctx is limb.FP:
+        want_chain = limb.canon(ctx, fused.sqr_chain_ref(ctx, a[shift:], 3))
+        assert torch.equal(fused.sqr_chain(ctx, da, 3).cpu(), want_chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 50, 100])
+def test_sqr_chain_kernel_matches_plain(cuda, k):
+    x = _rows(17, (5, 41, limb.NLIMBS))
+    x[0, 1] = 0
+    x[0, 2] = torch.from_numpy(limb.int_to_limbs(1))
+    want = limb.canon(limb.FP, fused.sqr_chain_ref(limb.FP, x, k))
+    before = fused.LAUNCHES["sqr_chain"]
+    got = fused.sqr_chain(limb.FP, x.to(cuda), k)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["sqr_chain"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
 POINT_KERNELS = {
-    "madd": (fused.madd, fused.madd_ref, edwards.identity_niels),
     "add": (fused.add, fused.add_ref, edwards.identity),
     "double": (fused.double, fused.double_ref, edwards.identity),
 }
@@ -74,6 +123,21 @@ def test_point_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,windows,steps", [(41, 20, 13), (200, 3, 1), (5, 1, 13)],
+                         ids=["verifier-shape", "steps-1", "one-window"])
+def test_double_chain_kernel_matches_plain(cuda, n, windows, steps):
+    p = _rows(18, (n, 4, limb.NLIMBS))
+    p[1] = edwards.identity()
+    want = limb.canon(limb.FP, fused.double_chain_ref(p, windows, steps))
+    before = fused.LAUNCHES["double_chain"]
+    got = fused.double_chain(p.to(cuda), windows, steps)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["double_chain"] == before + 1
+    assert got.shape == (n, windows, 4, limb.NLIMBS)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a = _rows(5, (8, limb.NLIMBS)).to(cuda)
     with pytest.raises(ValueError):
@@ -82,12 +146,23 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fused.mul_rows(limb.FP, a, a.cpu())  # mixed devices
     with pytest.raises(TypeError):
         fused.mul_rows(limb.FP, a, a.long())
+    with pytest.raises(ValueError):
+        fused.sqr_chain(limb.FL, a, 2)  # the chain kernel is mod p only
+    with pytest.raises(ValueError):
+        fused.sqr_chain(limb.FP, a, 0)
     p = _rows(6, (8, 4, limb.NLIMBS)).to(cuda)
     with pytest.raises(ValueError):
         fused.add(p, p.transpose(0, 1).contiguous().transpose(0, 1))  # not contiguous
+    with pytest.raises(ValueError):
+        fused.double_chain(p, 0, 13)
     shifted = torch.zeros(limb.NLIMBS + p.numel(), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):  # K2 and K3 read 16-byte vectors
-        fused.madd(p, shifted[limb.NLIMBS :].view(p.shape))
+    off_grid = shifted[limb.NLIMBS :].view(p.shape)
+    with pytest.raises(ValueError):  # the point kernels read 16-byte vectors
+        fused.add(p, off_grid)
+    with pytest.raises(ValueError):
+        fused.double(off_grid)
+    with pytest.raises(ValueError):
+        fused.double_chain(off_grid, 2, 13)
 
 
 SCAN_KERNELS = {
@@ -152,8 +227,10 @@ def test_cpu_tensors_take_the_plain_versions():
     before = fused.launch_counts()
     assert torch.equal(fused.mul_rows(limb.FL, a, b), fused.mul_rows_ref(limb.FL, a, b))
     assert torch.equal(fused.add(p, q), fused.add_ref(p, q))
-    assert torch.equal(fused.madd(p, q), fused.madd_ref(p, q))
     assert torch.equal(fused.double(p), fused.double_ref(p))
+    assert torch.equal(fused.double_chain(p, 3, 2), fused.double_chain_ref(p, 3, 2))
+    assert torch.equal(fused.sqr_chain(limb.FP, a, 3), fused.sqr_chain_ref(limb.FP, a, 3))
+    assert torch.equal(fused.madd_scan(p[:4], 2)[1], fused.madd_scan_ref(p[:4], 2)[1])
     items = _rows(13, (2, 12, 4, limb.NLIMBS))
     for name, (kern, ref, _) in SCAN_KERNELS.items():
         for g, w in zip(_as_tuple(kern(items, 4)), _as_tuple(ref(items, 4))):
