@@ -26,15 +26,40 @@ Phases, in order; any failure exits non-zero:
      spans on and the launch counts set to 0 just before it and read just
      after; every kernel must have launched, and the two chains must have
      kept the one-step launches of K4 and K1 mod p below LAUNCH_LIMITS;
-  5. the kernels line (JSON), the card line, then the result line.
+  5. the server, driven with wire bytes over a real Unix socket (the client
+     functions of scripts/uds_client_torch.py):
+     a. in this process, `BlindBidServer` on an event loop in a thread, the
+        launch counts set to 0 just before it starts: the recorded verify
+        session (a proof the JAX package made) must give the recorded
+        response bytes; the recorded prove request a proof that verifies, and
+        0x00 with a changed seed; a bad opcode and a prove body cut short give
+        0xff and the daemon answers on; then 16, 5, 11 and 17 connections at
+        once, each proving and then verifying its own proof, with the batch
+        sizes the service flushed and the wall time an operation printed.
+        Before it, without the socket, the recorded prove request with
+        rng = default_rng(2026) must give the recorded proof bytes.  Every
+        kernel must have launched; an error frame for a well-formed request,
+        a device fault or an exception in the server's thread fails the run;
+     b. the entry point, `python -m dusk_blindbidproof_tpu_torch.server` with
+        no --device, as a subprocess: time to listening, one prove + verify,
+        16 at once, alive before it is terminated;
+  6. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
 
+import asyncio
+import importlib.util
 import json
+import os
 import re
+import shutil
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -43,6 +68,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FROZEN_BLINDBID = ROOT / "tests" / "data" / "blindbid_L4_seed42.hex"
+# one prove and one verify round trip as wire bytes, recorded from the JAX
+# package: TLV(request) ++ TLV(response); the prove one with rng = default_rng(2026)
+SESSION_PROVE = ROOT / "tests" / "data" / "session_prove.bin"
+SESSION_VERIFY = ROOT / "tests" / "data" / "session_verify.bin"
+RECORDED_RNG_SEED = 2026
 
 # CAP = 8 cube proof (a^3 = public, a = 12345, blinding 111), frozen from the
 # JAX package's host oracle
@@ -126,6 +156,12 @@ SQR_CHAIN_K = (100, 50, 2)  # runs of squarings in x^(2^252 - 3); the longest go
 LAUNCH_LIMITS = {"double": 40, "mul_rows_fp": 60}
 N_KERNELS = 10  # entry functions of the library: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans
 TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
+# phase 5: connections opened at once, in this order; 16 is the service's cap,
+# 5 and 11 are batches that are not a power of two, 17 must split
+CLIENTS_AT_ONCE = (16, 5, 11, 17)
+MAX_BATCH = 16
+PARSE_REPS = 100  # parses timed for the host's cost of one request
+SERVER_START_TIMEOUT = 300  # s, for the socket of a starting server to appear
 
 
 def fail(msg: str) -> None:
@@ -367,16 +403,22 @@ def check_scans(checks) -> None:
 # ---------------------------------------------------------------------------
 
 
+def request_inputs(i: int) -> dict:
+    """What bidder i knows: its bid's secrets, the seed, the other bids of the
+    list and its own place in it."""
+    return dict(d=123456789 + 7919 * i, k=987654321 + 104729 * i, seed=55555 + i,
+                extra=[1000 + 3 * i + j for j in range(3)], pos=(2 + i) % 4)
+
+
 def requests(n: int):
     from dusk_blindbidproof_tpu_torch.models.blindbid import make_prove_request
 
-    return [
-        make_prove_request(
-            d=123456789 + 7919 * i, k=987654321 + 104729 * i, seed=55555 + i,
-            pub_list_extra=[1000 + 3 * i + j for j in range(3)], toggle_pos=(2 + i) % 4,
-        )
-        for i in range(n)
-    ]
+    out = []
+    for i in range(n):
+        r = request_inputs(i)
+        out.append(make_prove_request(d=r["d"], k=r["k"], seed=r["seed"],
+                                      pub_list_extra=r["extra"], toggle_pos=r["pos"]))
+    return out
 
 
 def verify_requests(reqs, proofs, seed_bump=0):
@@ -489,6 +531,272 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
     return counts, s_per_op
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the server
+# ---------------------------------------------------------------------------
+
+
+def load_client():
+    """scripts/uds_client_torch.py: the functions that make the request bodies
+    and the framed round trip, the ones the script itself uses."""
+    spec = importlib.util.spec_from_file_location(
+        "uds_client_torch", ROOT / "scripts" / "uds_client_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def session(path: Path) -> tuple[bytes, bytes]:
+    """(request payload, response frame) of a recorded session file: the
+    response is recorded as it goes over the wire, length prefix included."""
+    from dusk_blindbidproof_tpu_torch.utils.tlv import TlvReader
+
+    r = TlvReader(path.read_bytes())
+    return r.expect_frame("request"), r.expect_frame("response")
+
+
+def socket_dir() -> str:
+    """A fresh directory whose path leaves room for a socket's name: a Unix
+    socket's path holds about 100 bytes."""
+    for base in (None, str(ROOT)):
+        path = tempfile.mkdtemp(prefix="bb", dir=base)
+        if len(path) <= 80:
+            return path
+        os.rmdir(path)
+    fail("no temporary directory with a path short enough for a Unix socket")
+
+
+def connect(path: str) -> socket.socket:
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(600)
+    s.connect(path)
+    return s
+
+
+def wait_for_socket(path: str, alive, what: str) -> None:
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if not alive():
+            fail(f"{what} ended before it listened on its socket")
+        if time.perf_counter() - t0 > SERVER_START_TIMEOUT:
+            fail(f"{what} did not listen within {SERVER_START_TIMEOUT} s")
+        time.sleep(0.01)
+
+
+class LiveServer:
+    """The port's server on an event loop of its own in a background thread.
+    The batch sizes the service flushes are recorded by wrapping its `_flush`.
+    Leaving the `with` block stops the server, joins the thread and raises
+    what the thread raised (a device fault included)."""
+
+    def __init__(self, path: str, dev):
+        from dusk_blindbidproof_tpu_torch.server import BatchingService, BlindBidServer
+
+        self.path = path
+        self.flushed: list[tuple[str, int]] = []
+        service = BatchingService(device=dev)
+        flush = service._flush
+
+        async def recording_flush(kind, q):
+            self.flushed.append((kind, len(q)))
+            await flush(kind, q)
+
+        service._flush = recording_flush
+        self.server = BlindBidServer(path, service)
+        self.loop = None
+        self.raised = None
+        self.thread = threading.Thread(target=self._run, name="blindbid-server", daemon=True)
+
+    def _run(self) -> None:
+        async def serve():
+            self.loop = asyncio.get_running_loop()
+            await self.server.serve_forever()
+
+        try:
+            asyncio.run(serve())
+        except BaseException as exc:  # handed to the main thread, raised there
+            self.raised = exc
+
+    def __enter__(self):
+        self.thread.start()
+        wait_for_socket(self.path, self.thread.is_alive, "the server's thread")
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        if self.thread.is_alive() and self.loop is not None:
+            self.loop.call_soon_threadsafe(self.server.stop)
+        self.thread.join(timeout=120)
+        if self.thread.is_alive():
+            fail("the server's thread did not stop")
+        if self.raised is not None:
+            raise self.raised
+
+    def take_flushed(self) -> list[tuple[str, int]]:
+        out, self.flushed = self.flushed, []
+        return out
+
+
+def clients_at_once(client, path: str, n: int) -> float:
+    """n connections, each with a bidder's own request: every prove request
+    goes out before the first answer is read, then every connection sends the
+    verify request for its own proof.  Returns the wall seconds; raises on an
+    error frame or a proof that is not accepted."""
+    bodies = [client.build_prove_body(**request_inputs(i)) for i in range(n)]
+    socks = [connect(path) for _ in range(n)]
+
+    def exchange(opcode, payloads):
+        for s, body in zip(socks, payloads):
+            s.sendall(client.frame(bytes([opcode]) + body))
+        answers = [client.read_frame(s) for s in socks]
+        if client.ERROR_FRAME in answers:
+            raise RuntimeError(f"error frame for a well-formed opcode-{opcode} request "
+                               f"({n} at once)")
+        return answers
+
+    try:
+        t0 = time.perf_counter()
+        proofs = exchange(client.OP_PROVE, [body for body, _ in bodies])
+        verdicts = exchange(client.OP_VERIFY, [client.build_verify_body(proof, pub)
+                                               for proof, (_, pub) in zip(proofs, bodies)])
+        wall = time.perf_counter() - t0
+    finally:
+        for s in socks:
+            s.close()
+    if verdicts != [b"\x01"] * n:
+        raise RuntimeError(f"{n} at once: not every proof verified: {verdicts}")
+    return wall
+
+
+def server_in_process(dev, s_per_op_direct: float) -> dict:
+    from dusk_blindbidproof_tpu_torch import server as srv
+    from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch
+    from dusk_blindbidproof_tpu_torch.ops import fused
+
+    client = load_client()
+    prove_req, prove_resp = session(SESSION_PROVE)
+    verify_req, verify_resp = session(SESSION_VERIFY)
+
+    # without the socket: the recorded request and rng give the recorded bytes
+    parsed = srv.parse_prove_request(prove_req[1:])
+    proofs = prove_batch([parsed], rng=np.random.default_rng(RECORDED_RNG_SEED), device=dev)
+    if client.frame(srv.encode_proof(proofs[0])) != prove_resp:
+        fail("the recorded prove request with the recorded rng does not give the recorded proof")
+    # the event loop parses one request after another while a window is open
+    t0 = time.perf_counter()
+    for _ in range(PARSE_REPS):
+        srv.parse_prove_request(prove_req[1:])
+    t1 = time.perf_counter()
+    for _ in range(PARSE_REPS):
+        srv.parse_verify_request(verify_req[1:])
+    t2 = time.perf_counter()
+    print(f"server: parse -> prove_batch(rng = default_rng(2026)) -> encode equals the "
+          f"recorded prove response; parsing on the host takes {(t1 - t0) / PARSE_REPS * 1e3:.3f} ms "
+          f"a prove request and {(t2 - t1) / PARSE_REPS * 1e3:.3f} ms a verify request "
+          f"(window {srv.BatchingService().window * 1e3:.0f} ms)", flush=True)
+
+    tmp = socket_dir()
+    path = os.path.join(tmp, "bb.sock")
+    fused.reset_launch_counts()
+    try:
+        with LiveServer(path, dev) as live:
+            with connect(path) as s:
+                # 1. a proof the JAX package made
+                got = client.send_frame(s, verify_req)
+                if client.frame(got) != verify_resp or got != b"\x01":
+                    fail(f"the recorded verify request answered {got!r}, recorded {verify_resp!r}")
+                # 2. the recorded prove request, its proof sent back, a changed seed
+                proof = srv.decode_proof(client.send_frame(s, prove_req))
+                if (len(proof.commitments), len(proof.t_c)) != (4, 4):
+                    fail("the proof over the socket has the wrong number of commitments")
+                pub = dict(q=parsed.q, z_img=parsed.z_img, seed=parsed.seed,
+                           pub_list=parsed.pub_list)
+                frame = srv.encode_proof(proof)
+                ok = client.request(s, client.OP_VERIFY, client.build_verify_body(frame, pub))
+                pub["seed"] += 1
+                bad = client.request(s, client.OP_VERIFY, client.build_verify_body(frame, pub))
+                if (ok, bad) != (b"\x01", b"\x00"):
+                    fail(f"verify over the socket gave {ok!r}, and {bad!r} for a changed seed")
+            with connect(path) as s:
+                # 3. bad requests answer the error frame and the daemon lives
+                answers = [client.send_frame(s, p) for p in (b"\x09", prove_req[:40], verify_req)]
+                if answers != [srv.ERROR_FRAME, srv.ERROR_FRAME, b"\x01"]:
+                    fail(f"bad opcode, short prove body, valid verify answered {answers}")
+            print(f"server: recorded verify -> recorded bytes; prove -> 4 + 4 commitments, "
+                  f"verify 0x01, changed seed 0x00; bad opcode and short body 0xff, then 0x01; "
+                  f"flushed {live.take_flushed()}", flush=True)
+            # 4. and 5. concurrent clients
+            sizes_seen = []
+            before = fused.launch_counts()
+            for n in CLIENTS_AT_ONCE:
+                wall = clients_at_once(client, path, n)
+                flushed = live.take_flushed()
+                after = fused.launch_counts()
+                for kind in ("prove", "verify"):
+                    sizes = [size for k, size in flushed if k == kind]
+                    if sum(sizes) != n or max(sizes) > MAX_BATCH:
+                        fail(f"{n} at once: {kind} batches {sizes}")
+                    sizes_seen += sizes
+                print(f"server: {n} at once all verify: flushed {flushed}, wall {wall:.4f} s, "
+                      f"{wall / n} s/op (direct B=16: {s_per_op_direct}); launches "
+                      f"{ {k: after[k] - before[k] for k in after} }", flush=True)
+                before = after
+            if not any(size & (size - 1) for size in sizes_seen):
+                fail(f"no batch that is not a power of two was flushed: {sizes_seen}")
+        if live.server.fault is not None:
+            fail(f"the server kept a device fault: {live.server.fault!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = fused.launch_counts()
+    print(f"server: launches of phase 5a: {counts}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched behind the server: {missing}")
+    return counts
+
+
+def server_entry_point() -> None:
+    """`python -m dusk_blindbidproof_tpu_torch.server` with no --device."""
+    client = load_client()
+    tmp = socket_dir()
+    path = os.path.join(tmp, "bb.sock")
+    log_path = os.path.join(tmp, "server.log")
+    try:
+        with open(log_path, "wb") as log:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dusk_blindbidproof_tpu_torch.server", "--bind-path", path],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            wait_for_socket(path, lambda: proc.poll() is None, "the server process")
+            with connect(path) as s:
+                listening = time.perf_counter() - t0
+                client.prove_verify(s, *client.build_prove_body(**request_inputs(0)))
+                answered = time.perf_counter() - t0
+            # the same 16 at once as in phase 5a, the client now in another
+            # process than the server's event loop
+            wall = clients_at_once(client, path, MAX_BATCH)
+            if proc.poll() is not None:
+                fail(f"the server process ended with {proc.returncode} after answering")
+            proc.terminate()
+            rc = proc.wait(timeout=60)
+        except BaseException:
+            print(Path(log_path).read_text(errors="replace")[-4000:], flush=True)
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != -signal.SIGTERM:
+            print(Path(log_path).read_text(errors="replace")[-4000:], flush=True)
+            fail(f"the terminated server process exited with {rc}")
+        print(f"server: python -m dusk_blindbidproof_tpu_torch.server listened after "
+              f"{listening:.2f} s (kernel library already built), prove + verify answered "
+              f"at {answered:.2f} s, then {MAX_BATCH} at once all verify in {wall:.4f} s, "
+              f"{wall / MAX_BATCH} s/op; alive until terminated", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -512,12 +820,15 @@ def main() -> None:
     kernels = check_kernels(dev)
     main_path_b1(dev)
     counts, s_per_op = main_path_b16(dev)
+    server_counts = server_in_process(dev, float(np.median(s_per_op)))
+    server_entry_point()
 
     line = []
     for name, r in kernels.items():
         line.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": counts[name], "launches_server": server_counts[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
