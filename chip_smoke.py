@@ -43,12 +43,28 @@ Phases, in order; any failure exits non-zero:
      b. the entry point, `python -m dusk_blindbidproof_tpu_torch.server` with
         no --device, as a subprocess: time to listening, one prove + verify,
         16 at once, alive before it is terminated;
-  6. the kernels line (JSON), the card line, then the result line.
+     c. the scripts, as subprocesses started together, each of which must exit
+        0: scripts/test-uds-torch.sh (server + client over a socket),
+        scripts/oracle_compare_torch.py 8 and scripts/record_session_torch.py
+        (the frozen session bytes, written under build/);
+  6. the mesh on the one card: parallel.mesh.spawn starts 4 ranks on cuda:0
+     over gloo, the launch counts set to 0 in every rank just before its mesh
+     path and read just after: prove_batch / verify_batch at B = 16 with
+     rng = default_rng(7) at bids x points = 4 x 1 and 2 x 2 (every proof's
+     digest equal to phase 4's, all verify, a wrong seed rejected in its own
+     place, MESH_TRIPS timed round trips each), B = 5 and 3 at 4 x 1 (uneven
+     rows, then a rank with none), sharded_msm over the 4096 G and H
+     generators at 1 x 4 and over 64 points against host sums,
+     sharded_bucket_step at 2 x 2, dryrun_multichip; every kernel must have
+     launched in the ranks (counts summed over ranks).  A rank's exception,
+     non-zero exit or timeout fails the run;
+  7. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import importlib.util
 import json
 import os
@@ -162,6 +178,15 @@ CLIENTS_AT_ONCE = (16, 5, 11, 17)
 MAX_BATCH = 16
 PARSE_REPS = 100  # parses timed for the host's cost of one request
 SERVER_START_TIMEOUT = 300  # s, for the socket of a starting server to appear
+SCRIPT_TIMEOUT = 420  # s, for each script of phase 5c
+# phase 6: ranks on cuda:0, the layouts of the B = 16 round trips, timed trips a
+# layout, and the place whose seed is changed in each layout's wrong-seed pass
+MESH_RANKS = 4
+MESH_LAYOUTS = {(4, 1): 5, (2, 2): 12}
+MESH_TRIPS = 3
+MESH_UNEVEN_B = (5, 3)  # batches at 4 x 1 that do not divide: 2 + 1 + 1 + 1, and an empty rank
+MESH_MSM_SEED = 11
+MESH_TIMEOUT = 600  # s, for the whole phase 6 job
 
 
 def fail(msg: str) -> None:
@@ -484,7 +509,15 @@ def cube_proof(dev) -> None:
     print("CAP=8 cube proof: equal to the frozen bytes", flush=True)
 
 
-def main_path_b16(dev) -> tuple[dict, list[float]]:
+def proof_digest(proof) -> str:
+    from dusk_blindbidproof_tpu_torch.models.blindbid import proof_blob
+
+    return hashlib.sha256(proof_blob(proof)).hexdigest()
+
+
+def main_path_b16(dev) -> tuple[dict, list[float], list[str]]:
+    """Returns the launch counts, the s/op of the timed trips and the digests
+    of the 16 proofs (rng = default_rng(7), the same in every trip)."""
     from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch, verify_batch
     from dusk_blindbidproof_tpu_torch.ops import fused
     from dusk_blindbidproof_tpu_torch.utils import profiling
@@ -496,16 +529,18 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
         proofs = prove_batch(reqs, rng=np.random.default_rng(7), device=dev)
         oks = verify_batch(verify_requests(reqs, proofs), device=dev)
         torch.cuda.synchronize()
-        return oks
+        return oks, proofs
 
     t0 = time.perf_counter()
-    if round_trip() != [True] * B:
+    oks, proofs = round_trip()
+    if oks != [True] * B:
         fail("B=16 warm-up round trip did not verify")
+    digests = [proof_digest(p) for p in proofs]
     warm = time.perf_counter() - t0
     s_per_op = []
     for _ in range(TIMED_TRIPS):
         t0 = time.perf_counter()
-        oks = round_trip()
+        oks, _ = round_trip()
         s_per_op.append((time.perf_counter() - t0) / B)
         if oks != [True] * B:
             fail("B=16 timed round trip did not verify")
@@ -515,7 +550,7 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
     profiling.enable()
     profiling.reset()
     fused.reset_launch_counts()
-    oks = round_trip()
+    oks, _ = round_trip()
     counts = fused.launch_counts()
     profiling.enable(False)
     if oks != [True] * B:
@@ -528,7 +563,7 @@ def main_path_b16(dev) -> tuple[dict, list[float]]:
     over = {k: counts[k] for k, limit in LAUNCH_LIMITS.items() if counts[k] > limit}
     if over:
         fail(f"launches that the chains should have taken over: {over} (limits {LAUNCH_LIMITS})")
-    return counts, s_per_op
+    return counts, s_per_op, digests
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +832,167 @@ def server_entry_point() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def scripts_on_card() -> None:
+    """Phase 5c: the scripts a user runs, started together as subprocesses
+    (each in a session of its own, so that a timeout ends its whole tree);
+    each must exit 0, the oracle comparison with "ALL OK"."""
+    runs = {
+        "scripts/test-uds-torch.sh": (["bash", "scripts/test-uds-torch.sh"], ""),
+        "scripts/oracle_compare_torch.py 8": (
+            [sys.executable, "scripts/oracle_compare_torch.py", "8"], "RESULT: ALL OK"),
+        "scripts/record_session_torch.py": (
+            [sys.executable, "scripts/record_session_torch.py"], ""),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, start_new_session=True)
+             for name, (cmd, _) in runs.items()}
+    try:
+        for name, proc in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, SCRIPT_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"{name} did not end within {SCRIPT_TIMEOUT} s")
+            tail = "\n  ".join(out.strip().splitlines()[-6:])
+            print(f"script {name}: exit {proc.returncode}, read {time.perf_counter() - t0:.2f} s "
+                  f"after the three started\n  {tail}", flush=True)
+            if proc.returncode != 0 or runs[name][1] not in out:
+                print(out[-4000:], flush=True)
+                fail(f"{name} exited with {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the mesh on the one card
+# ---------------------------------------------------------------------------
+
+
+def mesh_rank(dev, digests: list[str]) -> dict:
+    """One rank of phase 6 (module level: the ranks import it by name).
+    Raises on any disagreement, which fails the job."""
+    import torch.distributed as dist
+
+    from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch, verify_batch
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb, msm
+    from dusk_blindbidproof_tpu_torch.parallel import mesh as pmesh
+    from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+
+    out = {"entered": time.time()}
+    meshes = {layout: pmesh.make_mesh(bids=layout[0], points=layout[1], device=dev)
+              for layout in (*MESH_LAYOUTS, (1, MESH_RANKS))}
+    out["ready"] = time.time()
+    reqs = requests(16)
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"rank {dist.get_rank()}: {what}")
+
+    def round_trip(mesh, n):
+        proofs = prove_batch(reqs[:n], rng=np.random.default_rng(7), mesh=mesh)
+        oks = verify_batch(verify_requests(reqs[:n], proofs), mesh=mesh)
+        torch.cuda.synchronize()
+        return proofs, oks
+
+    # inputs of the MSM cases, made before the counted run: the 4096 G and H
+    # generators (hash-derived points) and 64 random multiples of the basepoint
+    gen = np.random.default_rng(MESH_MSM_SEED)
+    gens = edwards.from_host(msm._host_points(2048)[:4096], device=dev)
+    gen_scalars = [int.from_bytes(gen.bytes(32), "little") % host.L for _ in range(4096)]
+    small_host = [host.ED25519_BASEPOINT.scalar_mul(int.from_bytes(gen.bytes(32), "little") % host.L)
+                  for _ in range(64)]
+    small_scalars = [int.from_bytes(gen.bytes(32), "little") % host.L for _ in range(64)]
+    bucket_pts = gens.reshape(4, 1024, 4, limb.NLIMBS).repeat(1, 4, 1, 1)  # [4, 4096, 4, NL]
+    bucket_digits = torch.from_numpy(
+        gen.integers(0, msm.D_BUCKETS, size=(4, 4096)).astype(np.int32)).to(dev)
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    fused.reset_launch_counts()
+    for layout, bad in MESH_LAYOUTS.items():
+        mesh = meshes[layout]
+        proofs, oks = round_trip(mesh, 16)
+        check([proof_digest(p) for p in proofs] == digests,
+              f"{layout}: proofs differ from the unsharded ones of phase 4")
+        check(oks == [True] * 16, f"{layout}: verify gave {oks}")
+        vreqs = verify_requests(reqs, proofs)
+        vreqs[bad].seed += 1
+        got = verify_batch(vreqs, mesh=mesh)
+        check(got == [i != bad for i in range(16)], f"{layout}: wrong seed at {bad} gave {got}")
+        trips = []
+        for trip in range(MESH_TRIPS):
+            before = fused.launch_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            _, oks = round_trip(mesh, 16)
+            dist.barrier()
+            trips.append((time.perf_counter() - t0) / 16)
+            check(oks == [True] * 16, f"{layout}: timed round trip gave {oks}")
+            if trip == 0:
+                after = fused.launch_counts()
+                out[f"trip_launches {layout}"] = {k: after[k] - before[k] for k in after}
+        out[f"s_per_op {layout}"] = trips
+    for n in MESH_UNEVEN_B:
+        proofs, oks = round_trip(meshes[(4, 1)], n)
+        check([proof_digest(p) for p in proofs] == digests[:n] and oks == [True] * n,
+              f"B = {n} at (4, 1): proofs or verdicts differ")
+    m14 = meshes[(1, MESH_RANKS)]
+    big = pmesh.sharded_msm(m14, gens, torch.from_numpy(limb.ints_to_limbs(gen_scalars)).to(dev))
+    small = pmesh.sharded_msm(m14, edwards.from_host(small_host, device=dev),
+                              torch.from_numpy(limb.ints_to_limbs(small_scalars)).to(dev))
+    bucket = pmesh.sharded_bucket_step(meshes[(2, 2)], bucket_pts, bucket_digits)
+    pmesh.dryrun_multichip(meshes[(2, 2)])
+    torch.cuda.synchronize()
+    out["launches"] = fused.launch_counts()
+
+    # references, after the counts were read
+    want = msm.msm(gens, torch.from_numpy(limb.ints_to_limbs(gen_scalars)).to(dev))
+    check(bool(edwards.eq_points(big, want)), "sharded_msm over 4096 points != msm.msm")
+    acc = host.EdwardsPoint.identity()
+    for p, k in zip(small_host, small_scalars):
+        acc = acc + p.scalar_mul(k)
+    check(pmesh._same_point(edwards.to_host(small)[0], acc), "sharded_msm over 64 points != host sum")
+    want = msm.bucket_msm(bucket_pts, bucket_digits)
+    check(bool(edwards.eq_points(bucket, want).all()), "sharded_bucket_step != bucket_msm")
+    out["done"] = time.time()
+    return out
+
+
+def mesh_phase(digests: list[str], s_per_op_direct: float) -> dict:
+    from dusk_blindbidproof_tpu_torch.ops import fused
+    from dusk_blindbidproof_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.empty_cache()
+    backend = pmesh.default_backend("cuda:0", MESH_RANKS)
+    t0 = time.time()
+    ranks = pmesh.spawn(mesh_rank, MESH_RANKS, device="cuda:0", args=(digests,),
+                        timeout=MESH_TIMEOUT)
+    t1 = time.time()
+    print(f"mesh: {MESH_RANKS} ranks on cuda:0 over {backend}: in their function after "
+          f"{max(r['entered'] for r in ranks) - t0:.2f} s, meshes made after "
+          f"{max(r['ready'] for r in ranks) - t0:.2f} s, job {t1 - t0:.2f} s", flush=True)
+    for layout in MESH_LAYOUTS:
+        trips = ranks[0][f"s_per_op {layout}"]
+        print(f"mesh {layout[0]}x{layout[1]}: 16 proofs = phase 4's bytes, all verify, wrong seed "
+              f"rejected at place {MESH_LAYOUTS[layout]} only; s/op over {MESH_TRIPS} round trips "
+              f"(rank 0) median {np.median(trips)}, all {trips}; phase 4 direct median "
+              f"{s_per_op_direct}", flush=True)
+        print(f"mesh {layout[0]}x{layout[1]}: launches of one round trip, by rank: "
+              f"{[r[f'trip_launches {layout}'] for r in ranks]}", flush=True)
+    print(f"mesh: B = {MESH_UNEVEN_B} at 4x1 = phase 4's first B proofs, all verify; sharded_msm "
+          f"over 4096 and 64 points, sharded_bucket_step at 2x2 and dryrun_multichip agree",
+          flush=True)
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in fused.KERNELS}
+    print(f"mesh: launches summed over the ranks: {counts}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched in the ranks: {missing}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -819,15 +1015,18 @@ def main() -> None:
 
     kernels = check_kernels(dev)
     main_path_b1(dev)
-    counts, s_per_op = main_path_b16(dev)
+    counts, s_per_op, digests = main_path_b16(dev)
     server_counts = server_in_process(dev, float(np.median(s_per_op)))
     server_entry_point()
+    scripts_on_card()
+    mesh_counts = mesh_phase(digests, float(np.median(s_per_op)))
 
     line = []
     for name, r in kernels.items():
         line.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": counts[name], "launches_server": server_counts[name],
+            "launches_mesh": mesh_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -7,9 +7,12 @@
   * `verify_batch` recommits, uses the same gadget shape, and runs one
     fixed-base plus one dynamic MSM.
 
-Both take `device=` (default CUDA; see models.bulletproofs.resolve_device).
-The circuit shape is cached per list length and device; the witness is
-generated by a host routine mirroring the gadget's gate order.
+Both take `device=` (default CUDA; see models.bulletproofs.resolve_device)
+or `mesh=` (parallel.mesh: every rank passes the same full batch, proves or
+verifies the rows of its bids index and returns the whole batch's results,
+byte-identical to mesh=None).  The circuit shape is cached per list length
+and device; the witness is generated by a host routine mirroring the
+gadget's gate order.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops import limb
+from ..parallel import mesh as pmesh
 from ..utils.curve_host import L, scalar_invert
 from ..utils.merlin import Transcript
 from .bulletproofs import (
@@ -166,9 +170,15 @@ def prove_batch(
     rng: np.random.Generator | None = None,
     seed: bytes = b"\x00" * 32,
     device=None,
+    mesh=None,
 ) -> list[BlindBidProof]:
-    """Prove a batch of same-list-length requests in transcript lockstep."""
-    device = resolve_device(device)
+    """Prove a batch of same-list-length requests in transcript lockstep.
+
+    With a mesh, the blindings of the whole batch are rank 0's draws from its
+    `rng` (B x m in batch order), broadcast, so every rank proves with the
+    numbers one process would draw."""
+    if mesh is None:
+        device = resolve_device(device)  # first: without a GPU, no work
     B = len(requests)
     list_len = len(requests[0].pub_list)
     if any(len(r.pub_list) != list_len for r in requests):
@@ -176,29 +186,33 @@ def prove_batch(
     for r in requests:
         if not 0 <= r.toggle < list_len:
             raise ValueError("toggle out of range")
-    circuit = blindbid_circuit(list_len, device)
     rng = rng or np.random.default_rng()
 
     transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
-    prover = Prover(transcripts, cap=GENS_CAPACITY, device=device)
+    prover = Prover(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
+    circuit = blindbid_circuit(list_len, prover.device)
 
     m = circuit.m
     values = [
         [r.d, r.k, r.y, r.y_inv] + [1 if i == r.toggle else 0 for i in range(list_len)]
         for r in requests
     ]
-    blind_ints = [
-        [int.from_bytes(rng.bytes(32), "little") % L for _ in range(m)]
-        for _ in range(B)
-    ]
+    blind_ints = None
+    if mesh is None or mesh.rank == 0:
+        blind_ints = [
+            [int.from_bytes(rng.bytes(32), "little") % L for _ in range(m)]
+            for _ in range(B)
+        ]
+    if mesh is not None:
+        blind_ints = pmesh.broadcast_object(mesh, blind_ints)
     commitments = prover.commit_batch(values, blind_ints)
 
     n_pad = circuit.n_pad
     aL = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
     aR = np.zeros_like(aL)
     aO = np.zeros_like(aL)
-    for i, r in enumerate(requests):
-        l, rr, o = blindbid_witness(r)
+    for i in range(B)[prover.rows]:  # the rows the prover reads
+        l, rr, o = blindbid_witness(requests[i])
         aL[i, : len(l)] = limb.ints_to_limbs_fast(l)
         aR[i, : len(rr)] = limb.ints_to_limbs_fast(rr)
         aO[i, : len(o)] = limb.ints_to_limbs_fast(o)
@@ -220,17 +234,18 @@ def prove_batch(
     ]
 
 
-def verify_batch(requests: list[VerifyRequest], device=None) -> list[bool]:
-    """Verify a batch of same-shape requests."""
-    device = resolve_device(device)
+def verify_batch(requests: list[VerifyRequest], device=None, mesh=None) -> list[bool]:
+    """Verify a batch of same-shape requests (`mesh`: see prove_batch)."""
+    if mesh is None:
+        device = resolve_device(device)  # first: without a GPU, no work
     B = len(requests)
     list_len = len(requests[0].pub_list)
     if any(len(r.pub_list) != list_len for r in requests):
         raise ValueError("batch must share list length")
-    circuit = blindbid_circuit(list_len, device)
 
     transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
-    verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device)
+    verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
+    circuit = blindbid_circuit(list_len, verifier.device)
     commitments = [r.proof.commitments + r.proof.t_c for r in requests]
     for row in commitments:
         if len(row) != 4 + list_len:

@@ -32,19 +32,21 @@ Transcript schedule (the bit-exactness contract):
   verifier-only: challenge "r"
 
 Every device function takes tensors on one device; the entry points
-(`Prover`, `Verifier`) take `device=` and default to CUDA.  Batches run at
-their natural size.
+(`Prover`, `Verifier`) take `device=` and default to CUDA, or `mesh=`
+(parallel.mesh: each rank proves its own rows, every rank returns the whole
+batch).  Batches run at their natural size.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from ..ops import edwards, limb, msm, ristretto
 from ..ops.limb import FL, FP, NLIMBS
+from ..parallel import mesh as pmesh
 from ..utils import curve_host as chost
 from ..utils.curve_host import L, scalar_invert
 from ..utils.merlin import Transcript
@@ -450,17 +452,43 @@ def _batch_invert(vals: list[int]) -> list[int]:
     return out
 
 
-class Prover:
+class _MeshRows:
+    """The rows of a batch that this process proves or verifies.
+
+    Without a mesh: every row, on `device` (default CUDA).  With a
+    `parallel.mesh.Mesh`: every rank is given the same full batch and works on
+    the contiguous rows of its bids index, on the mesh's device; the results
+    are gathered over the bids axis, so every rank returns the full batch's in
+    batch order, byte-identical to mesh=None.  A rank advances the transcripts
+    of its own rows only; a rank with no rows still joins every gather."""
+
+    def __init__(self, transcripts: list[Transcript], device, mesh):
+        if mesh is not None and device is not None:
+            raise ValueError("with a mesh the device is the mesh's")
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.rows = slice(None)
+            self.transcripts = transcripts
+        else:
+            self.device = mesh.device
+            self.rows = pmesh.bid_rows(mesh, len(transcripts))
+            self.transcripts = transcripts[self.rows]
+
+    def _gather(self, local: list) -> list:
+        return local if self.mesh is None else pmesh.gather_rows(self.mesh, local)
+
+
+class Prover(_MeshRows):
     """Batched R1CS prover: construct with transcripts (one per proof in
     the batch), commit values, then prove() against a compiled circuit."""
 
     def __init__(self, transcripts: list[Transcript], cap: int = GENS_CAPACITY_DEFAULT,
-                 device=None):
-        self.transcripts = transcripts
+                 device=None, mesh=None):
+        super().__init__(transcripts, device, mesh)
         self.cap = cap
-        self.device = resolve_device(device)
         self.tables = generator_tables(cap, self.device)
-        for t in transcripts:
+        for t in self.transcripts:
             r1cs_domain_sep(t)
 
     def _ints(self, vals, shape=None) -> torch.Tensor:
@@ -468,7 +496,11 @@ class Prover:
 
     def commit_batch(self, values, blindings) -> list[list[bytes]]:
         """values, blindings: [B][m] python ints -> per-proof compressed
-        commitment lists; appends them to the transcripts."""
+        commitment lists of the whole batch; appends this process's rows to
+        their transcripts."""
+        values, blindings = values[self.rows], blindings[self.rows]
+        if not values:
+            return self._gather([])
         B, m = len(values), len(values[0])
         with span("prove.commit_V"):
             comp = _host(commit_pedersen_tiny(
@@ -482,10 +514,23 @@ class Prover:
             for c in row:
                 append_point(t, b"V", c)
             out.append(row)
-        return out
+        return self._gather(out)
 
     def prove(self, circuit: CompiledCircuit, witness: ProverWitness,
               seed: bytes = b"\x00" * 32) -> list[R1CSProof]:
+        """The proofs of the whole batch; `witness` holds the whole batch's
+        rows, of which a rank of a mesh reads its own alone."""
+        if self.mesh is None:
+            return self._prove_rows(circuit, witness, seed)
+        local = []
+        if self.transcripts:
+            rows = ProverWitness(*(getattr(witness, f.name)[self.rows]
+                                   for f in fields(ProverWitness)))
+            local = self._prove_rows(circuit, rows, seed)
+        return [R1CSProof.from_bytes(b) for b in self._gather([p.to_bytes() for p in local])]
+
+    def _prove_rows(self, circuit: CompiledCircuit, witness: ProverWitness,
+                    seed: bytes) -> list[R1CSProof]:
         cap, n_pad, n1 = self.cap, circuit.n_pad, circuit.n1
         assert n_pad <= cap, "circuit exceeds generator capacity"
         ts = self.transcripts
@@ -754,21 +799,21 @@ def _lex_ge(a: np.ndarray, bound: np.ndarray) -> np.ndarray:
     return np.where(any_diff, picked > bound[first], True)
 
 
-class Verifier:
+class Verifier(_MeshRows):
     """Batched R1CS verifier: replays the transcript schedule and evaluates
     the statement as one fixed-base MSM plus one small dynamic MSM."""
 
     def __init__(self, transcripts: list[Transcript], cap: int = GENS_CAPACITY_DEFAULT,
-                 device=None):
-        self.transcripts = transcripts
+                 device=None, mesh=None):
+        super().__init__(transcripts, device, mesh)
         self.cap = cap
-        self.device = resolve_device(device)
         self.tables = generator_tables(cap, self.device)
-        for t in transcripts:
+        for t in self.transcripts:
             r1cs_domain_sep(t)
 
     def commit_batch(self, commitments: list[list[bytes]]) -> None:
-        for t, row in zip(self.transcripts, commitments):
+        """The whole batch's commitments; this process's rows are appended."""
+        for t, row in zip(self.transcripts, commitments[self.rows]):
             for c in row:
                 append_point(t, b"V", c)
 
@@ -777,7 +822,27 @@ class Verifier:
 
     def verify(self, circuit: CompiledCircuit, proofs: list[R1CSProof],
                commitments: list[list[bytes]], publics: np.ndarray) -> list[bool]:
-        """publics: [B, n_pub, NLIMBS] canonical public-input limbs."""
+        """The verdicts of the whole batch.  publics: [B, n_pub, NLIMBS]
+        canonical public-input limbs.  A malformed proof raises ProofError
+        for the whole batch, on every rank of a mesh."""
+        if self.mesh is None:
+            return self._verify_rows(circuit, proofs, commitments, publics)
+        local = []
+        if self.transcripts:
+            try:
+                local = self._verify_rows(circuit, proofs[self.rows], commitments[self.rows],
+                                          publics[self.rows])
+            except ProofError as exc:
+                # the batch's answer, as without a mesh: every rank raises it below
+                local = [str(exc)]
+        out = self._gather(local)
+        for v in out:
+            if isinstance(v, str):
+                raise ProofError(v)
+        return out
+
+    def _verify_rows(self, circuit: CompiledCircuit, proofs: list[R1CSProof],
+                     commitments: list[list[bytes]], publics: np.ndarray) -> list[bool]:
         ts = self.transcripts
         B = len(ts)
         n_pad = circuit.n_pad

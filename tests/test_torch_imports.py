@@ -1,8 +1,9 @@
 """The port stands alone: no module of dusk_blindbidproof_tpu_torch, and
-neither chip_smoke.py nor scripts/uds_client_torch.py, imports jax or the JAX
-package, and its CUDA entry points (the server's included) raise on a machine
-without a GPU instead of falling back to the CPU.  The port's copy of the
-pure-Python host oracle gives the JAX package's bytes and verdicts."""
+neither chip_smoke.py nor the port's scripts (scripts/*_torch.py,
+scripts/*-torch.sh), imports jax or the JAX package, and its CUDA entry points
+(the server's included) raise on a machine without a GPU instead of falling
+back to the CPU.  The port's copy of the pure-Python host oracle gives the JAX
+package's bytes and verdicts."""
 
 import ast
 import os
@@ -19,9 +20,12 @@ PORT = ROOT / "dusk_blindbidproof_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "dusk_blindbidproof_tpu")
 
 
+SCRIPTS = sorted((ROOT / "scripts").glob("*_torch.py"))
+SHELL_SCRIPTS = sorted((ROOT / "scripts").glob("*-torch.sh"))
+
+
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "uds_client_torch.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS
 
 
 def _imported(path: Path) -> set:
@@ -51,11 +55,21 @@ def test_port_imports_with_jax_blocked():
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
         + f"for m in {modules!r}:\n    importlib.import_module(m)\n"
         + "import runpy; runpy.run_path('chip_smoke.py', run_name='imported')\n"
-        + "runpy.run_path('scripts/uds_client_torch.py', run_name='imported')\n"
+        + "".join(f"runpy.run_path({str(p.relative_to(ROOT))!r}, run_name='imported')\n"
+                  for p in SCRIPTS)
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", SHELL_SCRIPTS, ids=lambda p: p.name)
+def test_shell_script_runs_the_port(path):
+    """The port's server and client, never the JAX package's."""
+    text = path.read_text()
+    assert "python -m dusk_blindbidproof_tpu_torch.server" in text
+    assert "scripts/uds_client_torch.py" in text
+    assert "dusk_blindbidproof_tpu.server" not in text and "uds_client.py" not in text
 
 
 def test_chip_smoke_fails_without_gpu():
