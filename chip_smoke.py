@@ -33,16 +33,21 @@ Phases, in order; any failure exits non-zero:
         session (a proof the JAX package made) must give the recorded
         response bytes; the recorded prove request a proof that verifies, and
         0x00 with a changed seed; a bad opcode and a prove body cut short give
-        0xff and the daemon answers on; then 16, 5, 11 and 17 connections at
-        once, each proving and then verifying its own proof, with the batch
-        sizes the service flushed and the wall time an operation printed.
+        0xff and the daemon answers on; five hostile requests (HOSTILE: verify
+        and prove with 203 bids, over the generator capacity; verify with 0
+        bids, with 10 IPA rounds at 4 bids, with an odd A_I1) each answer
+        exactly 0xff, launch no kernel and leave no fault; then, on the same
+        server, 16, 5, 11 and 17 connections at once, each proving and then
+        verifying its own proof, with the batch sizes the service flushed and
+        the wall time an operation printed.
         Before it, without the socket, the recorded prove request with
         rng = default_rng(2026) must give the recorded proof bytes.  Every
         kernel must have launched; an error frame for a well-formed request,
         a device fault or an exception in the server's thread fails the run;
      b. the entry point, `python -m dusk_blindbidproof_tpu_torch.server` with
         no --device, as a subprocess: time to listening, one prove + verify,
-        16 at once, alive before it is terminated;
+        the over-capacity verify request (0xff), 16 at once, alive before it
+        is terminated;
      c. the scripts, as subprocesses started together, each of which must exit
         0: scripts/test-uds-torch.sh (server + client over a socket),
         scripts/oracle_compare_torch.py 8 and scripts/record_session_torch.py
@@ -176,6 +181,11 @@ TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
 # 5 and 11 are batches that are not a power of two, 17 must split
 CLIENTS_AT_ONCE = (16, 5, 11, 17)
 MAX_BATCH = 16
+# hostile requests: 203 bids make n1 = 1442 + 3 x 203 = 2051 gates, so n_pad =
+# 4096 > GENS_CAPACITY = 2048 (a verify proof of it has 12 IPA rounds)
+OVER_CAPACITY_BIDS = 203
+HOSTILE = ("verify, 203 bids", "prove, 203 bids", "verify, 0 bids",
+           "verify, 10 IPA rounds at 4 bids", "verify, odd A_I1")
 PARSE_REPS = 100  # parses timed for the host's cost of one request
 SERVER_START_TIMEOUT = 300  # s, for the socket of a starting server to appear
 SCRIPT_TIMEOUT = 420  # s, for each script of phase 5c
@@ -702,6 +712,69 @@ def clients_at_once(client, path: str, n: int) -> float:
     return wall
 
 
+def hostile_requests(client) -> dict[str, bytes]:
+    """The HOSTILE requests as payloads (opcode byte and body), each
+    well-formed on the wire: a verify proof's points are the Ristretto
+    basepoint's encoding (A_I1 odd in the last) and its scalars canonical; the
+    prove request's publics are consistent, its own bid at place 0."""
+    from dusk_blindbidproof_tpu_torch import server as srv
+    from dusk_blindbidproof_tpu_torch.models.proof_struct import BlindBidProof, R1CSProof
+    from dusk_blindbidproof_tpu_torch.models.transcript_protocol import IDENTITY_COMPRESSED
+    from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+
+    base = host.ristretto_compress(host.RISTRETTO_BASEPOINT)
+
+    def verify(bids: int, rounds: int, a_i1: bytes = base) -> bytes:
+        r1cs = R1CSProof(
+            A_I1=a_i1, A_O1=base, S1=base, A_I2=IDENTITY_COMPRESSED,
+            A_O2=IDENTITY_COMPRESSED, S2=IDENTITY_COMPRESSED,
+            T_1=base, T_3=base, T_4=base, T_5=base, T_6=base,
+            t_x=1, t_x_blinding=2, e_blinding=3,
+            ipp_L=[base] * rounds, ipp_R=[base] * rounds, ipp_a=4, ipp_b=5)
+        proof = BlindBidProof(r1cs=r1cs, commitments=[base] * 4, t_c=[base] * bids)
+        pub = dict(q=7, z_img=8, seed=9, pub_list=[1000 + i for i in range(bids)])
+        return bytes([client.OP_VERIFY]) + client.build_verify_body(srv.encode_proof(proof), pub)
+
+    inputs = request_inputs(0)
+    prove_body, _ = client.build_prove_body(
+        d=inputs["d"], k=inputs["k"], seed=inputs["seed"],
+        extra=[1000 + i for i in range(OVER_CAPACITY_BIDS - 1)], pos=0)
+    payloads = [
+        verify(OVER_CAPACITY_BIDS, 12),
+        bytes([client.OP_PROVE]) + prove_body,
+        verify(0, 11),
+        verify(4, 10),
+        verify(4, 11, a_i1=bytes([base[0] | 1]) + base[1:]),
+    ]
+    return dict(zip(HOSTILE, payloads))
+
+
+def hostile_step(client, live, path: str) -> None:
+    """Phase 5a's hostile requests on one connection: each must answer
+    exactly the error frame with no kernel launched in between (the counts
+    read before and after each) and leave the server without a fault."""
+    from dusk_blindbidproof_tpu_torch.ops import fused
+
+    report = []
+    with connect(path) as s:
+        for name, payload in hostile_requests(client).items():
+            before = fused.launch_counts()
+            t0 = time.perf_counter()
+            answer = client.send_frame(s, payload)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = fused.launch_counts()
+            launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if answer != client.ERROR_FRAME:
+                fail(f"hostile request '{name}' answered {answer[:16]!r}, not the error frame")
+            if launched:
+                fail(f"hostile request '{name}' launched kernels: {launched}")
+            if live.server.fault is not None:
+                fail(f"hostile request '{name}' left a fault: {live.server.fault!r}")
+            report.append(f"{name} {ms:.1f} ms")
+    print(f"server: hostile requests each answered 0xff with 0 launches, no fault: "
+          f"{'; '.join(report)}; flushed {live.take_flushed()}", flush=True)
+
+
 def server_in_process(dev, s_per_op_direct: float) -> dict:
     from dusk_blindbidproof_tpu_torch import server as srv
     from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch
@@ -759,11 +832,13 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
             print(f"server: recorded verify -> recorded bytes; prove -> 4 + 4 commitments, "
                   f"verify 0x01, changed seed 0x00; bad opcode and short body 0xff, then 0x01; "
                   f"flushed {live.take_flushed()}", flush=True)
-            # 4. and 5. concurrent clients
-            sizes_seen = []
+            # 4. hostile requests, then the same server goes on
+            hostile_step(client, live, path)
+            # 5. concurrent clients
+            sizes_seen, walls = [], {}
             before = fused.launch_counts()
             for n in CLIENTS_AT_ONCE:
-                wall = clients_at_once(client, path, n)
+                wall = walls[n] = clients_at_once(client, path, n)
                 flushed = live.take_flushed()
                 after = fused.launch_counts()
                 for kind in ("prove", "verify"):
@@ -779,6 +854,9 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
                 fail(f"no batch that is not a power of two was flushed: {sizes_seen}")
         if live.server.fault is not None:
             fail(f"the server kept a device fault: {live.server.fault!r}")
+        print(f"hostile: {len(HOSTILE)} requests answered 0xff, 0 launches for the "
+              f"over-capacity pair (and the other three), server alive; then "
+              f"{MAX_BATCH} at once verified in {walls[MAX_BATCH]:.4f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = fused.launch_counts()
@@ -807,6 +885,9 @@ def server_entry_point() -> None:
                 listening = time.perf_counter() - t0
                 client.prove_verify(s, *client.build_prove_body(**request_inputs(0)))
                 answered = time.perf_counter() - t0
+                over = client.send_frame(s, hostile_requests(client)[HOSTILE[0]])
+                if over != client.ERROR_FRAME:
+                    fail(f"the server process answered '{HOSTILE[0]}' with {over[:16]!r}")
             # the same 16 at once as in phase 5a, the client now in another
             # process than the server's event loop
             wall = clients_at_once(client, path, MAX_BATCH)
@@ -826,8 +907,9 @@ def server_entry_point() -> None:
             fail(f"the terminated server process exited with {rc}")
         print(f"server: python -m dusk_blindbidproof_tpu_torch.server listened after "
               f"{listening:.2f} s (kernel library already built), prove + verify answered "
-              f"at {answered:.2f} s, then {MAX_BATCH} at once all verify in {wall:.4f} s, "
-              f"{wall / MAX_BATCH} s/op; alive until terminated", flush=True)
+              f"at {answered:.2f} s, '{HOSTILE[0]}' 0xff, then {MAX_BATCH} at once all "
+              f"verify in {wall:.4f} s, {wall / MAX_BATCH} s/op; alive until terminated",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1036,7 +1118,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1,  # the run uses cuda:0 only
+        "count": torch.cuda.device_count(),
     }}))
 
 

@@ -11,8 +11,10 @@ Both take `device=` (default CUDA; see models.bulletproofs.resolve_device)
 or `mesh=` (parallel.mesh: every rank passes the same full batch, proves or
 verifies the rows of its bids index and returns the whole batch's results,
 byte-identical to mesh=None).  The circuit shape is cached per list length
-and device; the witness is generated by a host routine mirroring the
-gadget's gate order.
+and device, and is made first: a list too long for the generator capacity
+is refused with ProofError before any table is built or kernel launched.
+The witness is generated by a host routine mirroring the gadget's gate
+order.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .bulletproofs import (
     Prover,
     ProverWitness,
     Verifier,
+    check_capacity,
     resolve_device,
 )
 from .constants import GENS_CAPACITY, TRANSCRIPT_LABEL, mimc_constants
@@ -165,6 +168,15 @@ def _publics_limbs(reqs_publics: list[list[int]]) -> np.ndarray:
     )
 
 
+def _checked_circuit(list_len: int, device, mesh) -> CompiledCircuit:
+    """The circuit of `list_len` bids on the device of the pass, refused with
+    ProofError if it exceeds the generator capacity: made before the prover
+    or verifier, so a refused request builds no table and launches nothing."""
+    circuit = blindbid_circuit(list_len, device if mesh is None else mesh.device)
+    check_capacity(circuit, GENS_CAPACITY)
+    return circuit
+
+
 def prove_batch(
     requests: list[ProveRequest],
     rng: np.random.Generator | None = None,
@@ -187,10 +199,10 @@ def prove_batch(
         if not 0 <= r.toggle < list_len:
             raise ValueError("toggle out of range")
     rng = rng or np.random.default_rng()
+    circuit = _checked_circuit(list_len, device, mesh)
 
     transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
     prover = Prover(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
-    circuit = blindbid_circuit(list_len, prover.device)
 
     m = circuit.m
     values = [
@@ -242,10 +254,10 @@ def verify_batch(requests: list[VerifyRequest], device=None, mesh=None) -> list[
     list_len = len(requests[0].pub_list)
     if any(len(r.pub_list) != list_len for r in requests):
         raise ValueError("batch must share list length")
+    circuit = _checked_circuit(list_len, device, mesh)
 
     transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
     verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
-    circuit = blindbid_circuit(list_len, verifier.device)
     commitments = [r.proof.commitments + r.proof.t_c for r in requests]
     for row in commitments:
         if len(row) != 4 + list_len:

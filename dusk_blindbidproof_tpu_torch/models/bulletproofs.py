@@ -255,6 +255,15 @@ class GeneratorTables:
     niels: torch.Tensor
 
 
+def check_capacity(circuit: CompiledCircuit, cap: int) -> None:
+    """Refuse a circuit larger than the generator capacity: an error of the
+    request (ProofError), raised before any table or tensor work."""
+    if circuit.n_pad > cap:
+        raise ProofError(
+            f"circuit exceeds generator capacity: n_pad {circuit.n_pad} > cap {cap}"
+        )
+
+
 def generator_tables(cap: int, device: torch.device) -> GeneratorTables:
     """The tables of `cap` generators on `device` (built once per process)."""
     table, _ = msm.pedersen_tables(cap, device)
@@ -292,6 +301,15 @@ def _sample_int(rng: np.random.Generator) -> int:
     return int.from_bytes(rng.bytes(32), "little") & ((1 << 252) - 1)
 
 
+def _cap_pad(B: int, n_pad: int, cap: int, device) -> list[torch.Tensor]:
+    """The zero rows that take a [B, n_pad, NL] vector up to the generator
+    capacity: one tensor, or none when n_pad == cap (the circuit's size was
+    checked against cap before any work, see check_capacity)."""
+    if cap > n_pad:
+        return [torch.zeros((B, cap - n_pad, NLIMBS), dtype=torch.int32, device=device)]
+    return []
+
+
 def phase_a(tables, a_L, a_R, a_O, s_L, s_R, blinds):
     """Vector commitments A_I1, A_O1, S1 for a batch.
 
@@ -300,11 +318,11 @@ def phase_a(tables, a_L, a_R, a_O, s_L, s_R, blinds):
     cap = tables.cap
     B, n_pad, _ = a_L.shape
     zero = torch.zeros_like(a_L)
-    zpad = torch.zeros((B, cap - n_pad, NLIMBS), dtype=torch.int32, device=a_L.device)
+    zpad = _cap_pad(B, n_pad, cap, a_L.device)
     zero1 = torch.zeros((B, 1, NLIMBS), dtype=torch.int32, device=a_L.device)
 
     def row(g, h, blind):
-        return torch.cat([g, zpad, h, zpad, zero1, blind[:, None, :]], dim=1)
+        return torch.cat([g, *zpad, h, *zpad, zero1, blind[:, None, :]], dim=1)
 
     digits = torch.stack(
         [
@@ -519,7 +537,10 @@ class Prover(_MeshRows):
     def prove(self, circuit: CompiledCircuit, witness: ProverWitness,
               seed: bytes = b"\x00" * 32) -> list[R1CSProof]:
         """The proofs of the whole batch; `witness` holds the whole batch's
-        rows, of which a rank of a mesh reads its own alone."""
+        rows, of which a rank of a mesh reads its own alone.  A circuit larger
+        than the capacity raises ProofError before any work (on every rank of
+        a mesh alike, with no collective)."""
+        check_capacity(circuit, self.cap)
         if self.mesh is None:
             return self._prove_rows(circuit, witness, seed)
         local = []
@@ -532,7 +553,6 @@ class Prover(_MeshRows):
     def _prove_rows(self, circuit: CompiledCircuit, witness: ProverWitness,
                     seed: bytes) -> list[R1CSProof]:
         cap, n_pad, n1 = self.cap, circuit.n_pad, circuit.n1
-        assert n_pad <= cap, "circuit exceeds generator capacity"
         ts = self.transcripts
         B = len(ts)
         dev = self.device
@@ -649,9 +669,9 @@ class Prover(_MeshRows):
         c_H = limb.mul(FL, y_inv_pows, c_G)
 
         # pad up to cap (generators beyond n_pad are never used: coeff 0)
-        zpad = torch.zeros((B, cap - n_pad, NLIMBS), dtype=torch.int32, device=dev)
+        zpad = _cap_pad(B, n_pad, cap, dev)
         c_G, c_H, a_vec, b_vec = (
-            torch.cat([v, zpad], dim=1) for v in (c_G, c_H, l_vec, r_vec)
+            torch.cat([v, *zpad], dim=1) for v in (c_G, c_H, l_vec, r_vec)
         )
         w_l = self._ints(ws_)
         L_rounds: list[list[bytes]] = [[] for _ in range(B)]
@@ -766,9 +786,9 @@ def verify_scalars(circuit: CompiledCircuit, cap: int, z, y_inv, x, w, r,
     )
     bblind_scalar = limb.add(FL, e_blinding, limb.mul(FL, r, t_x_blinding))
 
-    zpad = torch.zeros((B, cap - n_pad, NLIMBS), dtype=torch.int32, device=dev)
+    zpad = _cap_pad(B, n_pad, cap, dev)
     digits = torch.cat(
-        [g_scalars, zpad, h_scalars, zpad, b_scalar[:, None, :], bblind_scalar[:, None, :]],
+        [g_scalars, *zpad, h_scalars, *zpad, b_scalar[:, None, :], bblind_scalar[:, None, :]],
         dim=1,
     )
     return limb.canon(FL, digits)
@@ -824,7 +844,9 @@ class Verifier(_MeshRows):
                commitments: list[list[bytes]], publics: np.ndarray) -> list[bool]:
         """The verdicts of the whole batch.  publics: [B, n_pub, NLIMBS]
         canonical public-input limbs.  A malformed proof raises ProofError
-        for the whole batch, on every rank of a mesh."""
+        for the whole batch, on every rank of a mesh; so does a circuit
+        larger than the capacity, before any work."""
+        check_capacity(circuit, self.cap)
         if self.mesh is None:
             return self._verify_rows(circuit, proofs, commitments, publics)
         local = []

@@ -24,8 +24,9 @@ Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
 `madd_scan_ref`, `add_scan_ref`, `add_total_ref`) and a CUDA tensor to its
 kernel, or raises: nothing falls back from the kernel to the plain version.
 A CUDA wrapper checks device, dtype, shape and contiguity, allocates its
-output with torch.empty, launches on the current stream, raises on the
-returned cudaGetLastError() code, and adds one to its launch count.  The
+output with torch.empty, launches on the current stream, raises
+`KernelError` on the returned cudaGetLastError() code, and adds one to its
+launch count.  A failed build or initialisation raises `KernelError` too.  The
 point kernels read 16-byte vectors and raise on an operand that is not
 aligned so; the row kernels (K1, `sqr_chain`) take any int32 alignment and
 copy the ragged head and tail of a block's rows word by word.
@@ -73,6 +74,11 @@ _LIB = None
 _READY_DEVICES: set = set()
 
 
+class KernelError(RuntimeError):
+    """The kernels failed to build, to initialise or to launch: a fault of the
+    device or of the build, never of a request's data."""
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
@@ -95,7 +101,7 @@ def _nvcc() -> str:
     path = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _library_path() -> Path:
@@ -121,7 +127,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     BUILD_SECONDS = time.perf_counter() - t0
     BUILD_LOG = proc.stdout + proc.stderr
     log_tmp = log.with_suffix(f".log.{os.getpid()}.tmp")
@@ -158,7 +164,7 @@ def _ready(device: torch.device):
         with torch.cuda.device(device):
             rc = lib.bb_init()
         if rc != 0:
-            raise RuntimeError(f"bb_init failed with code {rc}")
+            raise KernelError(f"bb_init failed with code {rc}")
         _READY_DEVICES.add(device.index)
     return lib
 
@@ -194,7 +200,7 @@ def _check(shape, *xs, vector_loads: bool = False) -> None:
 def _launch(name: str, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"kernel {name} failed to launch: cudaError {rc}")
+        raise KernelError(f"kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
 
 

@@ -21,11 +21,15 @@ after another: the build, the launch counts, the profiling spans and the
 cached tables are then touched by that thread alone, and it starts with the
 resolved device as its current device.
 
-Errors.  A request's own faults (bad bytes, bad opcode, `BlindBidError`,
-`ProofError`, any `ValueError` of the prover or verifier) answer the error
-frame.  A `RuntimeError` that is not a `BlindBidError` (a kernel that failed
-to build or to launch, a CUDA error raised by torch) also fails its requests
-with the error frame, and then stops the server: it is kept in
+Errors.  Every failure of a request answers the error frame and the daemon
+serves on, as the JAX server does: bad bytes, a bad opcode, a `BlindBidError`,
+a `ProofError` (a malformed proof, a bid list too long for the generator
+capacity), a `ValueError` or an `AssertionError`, and also a plain
+`RuntimeError` such as a torch shape check (a bug of the port, logged with
+its traceback).  Only the device's own faults stop the server, after their
+requests have had the error frame: `fused.KernelError` (the kernels failed to
+build, to initialise or to launch), `torch.AcceleratorError` (a CUDA error
+raised by torch) and `torch.OutOfMemoryError`.  Such a fault is kept in
 `BlindBidServer.fault`, and `serve_forever` raises it.
 """
 
@@ -48,6 +52,7 @@ from .models.blindbid import ProveRequest, VerifyRequest
 from .models.bulletproofs import generator_tables, resolve_device
 from .models.constants import GENS_CAPACITY
 from .models.proof_struct import BlindBidProof, R1CSProof
+from .models.transcript_protocol import ProofError
 from .ops import fused
 from .utils.curve_host import L
 from .utils.tlv import TlvReader, TlvWriter
@@ -58,6 +63,13 @@ OP_PROVE = 1
 OP_VERIFY = 2
 ERROR_FRAME = b"\xff"  # the error marker's payload
 LIST_LEN = 4  # the bid-list length whose circuit is made at start-up
+
+
+def _is_device_fault(exc: BaseException) -> bool:
+    """True for a failure of the device or of the kernels' build, after which
+    no later pass can be trusted; false for everything a request can cause."""
+    return isinstance(exc, (fused.KernelError, torch.AcceleratorError,
+                            torch.OutOfMemoryError))
 
 
 def _read_scalars(r: TlvReader, names) -> list[int]:
@@ -286,14 +298,19 @@ class BlindBidServer:
         except Exception as exc:
             # one error domain (errors.py): any failure of a request answers
             # the error frame and the daemon lives on, unless it was the
-            # device's or the build's failure and not the request's
-            if isinstance(exc, RuntimeError) and not isinstance(exc, BlindBidError):
+            # device's own fault
+            fault = _is_device_fault(exc)
+            if fault:
                 log.critical("device fault, stopping the server", exc_info=exc)
                 if self.fault is None:
                     self.fault = exc
                 self.stop()
             err = wrap_exception(exc)
-            log.error("error resolving the request: [%s] %s", type(err).__name__, err)
+            # neither the device's nor of the error domain: a bug of the
+            # port, kept in the log with its traceback
+            bug = not fault and not isinstance(exc, (BlindBidError, ProofError, ValueError))
+            log.error("error resolving the request: [%s] %s", type(err).__name__, err,
+                      exc_info=exc if bug else None)
             w = TlvWriter()
             w.write(ERROR_FRAME)
         return w.getvalue()

@@ -15,7 +15,15 @@ import torch
 
 from dusk_blindbidproof_tpu.models import blindbid as jb
 from dusk_blindbidproof_tpu_torch.models import blindbid as tb
+from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp
 from dusk_blindbidproof_tpu_torch.models.bulletproofs import CompiledCircuit
+from dusk_blindbidproof_tpu_torch.models.constants import GENS_CAPACITY
+from dusk_blindbidproof_tpu_torch.models.proof_struct import BlindBidProof, R1CSProof
+from dusk_blindbidproof_tpu_torch.models.transcript_protocol import (
+    IDENTITY_COMPRESSED,
+    ProofError,
+)
+from dusk_blindbidproof_tpu_torch.utils import curve_host as chost
 
 # small tensors: one intra-op thread each, so parallel test workers do not
 # oversubscribe the cores
@@ -71,6 +79,49 @@ def test_entry_points_raise_without_gpu():
         tb.prove_batch([_req(tb)])
     with pytest.raises(RuntimeError):
         tb.verify_batch([])
+
+
+# 203 bids: n1 = 1442 + 3 * 203 = 2051 gates, n_pad = 4096 > GENS_CAPACITY
+OVER_CAPACITY_BIDS = 203
+
+
+def _basepoint_proof(n_bids: int, rounds: int) -> BlindBidProof:
+    """A well-formed proof of `rounds` IPA rounds whose points are all the
+    Ristretto basepoint's encoding."""
+    bp_enc = chost.ristretto_compress(chost.RISTRETTO_BASEPOINT)
+    pts = {k: bp_enc for k in ("A_I1", "A_O1", "S1", "T_1", "T_3", "T_4", "T_5", "T_6")}
+    r1cs = R1CSProof(**pts, A_I2=IDENTITY_COMPRESSED, A_O2=IDENTITY_COMPRESSED,
+                     S2=IDENTITY_COMPRESSED, t_x=1, t_x_blinding=2, e_blinding=3,
+                     ipp_L=[bp_enc] * rounds, ipp_R=[bp_enc] * rounds, ipp_a=4, ipp_b=5)
+    return BlindBidProof(r1cs=r1cs, commitments=[bp_enc] * 4, t_c=[bp_enc] * n_bids)
+
+
+@pytest.fixture
+def no_tables(monkeypatch):
+    """Building the generator tables fails the test."""
+    def untouched(cap, device):
+        raise AssertionError("generator tables built for a refused request")
+
+    monkeypatch.setattr(bp, "generator_tables", untouched)
+
+
+def test_circuit_over_capacity():
+    c = tb.blindbid_circuit(OVER_CAPACITY_BIDS, CPU)
+    assert (c.n1, c.n_pad) == (2051, 4096) and c.n_pad > GENS_CAPACITY
+    assert tb.blindbid_circuit(OVER_CAPACITY_BIDS - 1, CPU).n_pad == GENS_CAPACITY
+
+
+def test_verify_batch_refuses_over_capacity(no_tables):
+    req = tb.VerifyRequest(proof=_basepoint_proof(OVER_CAPACITY_BIDS, 12), score=7,
+                           z_img=8, seed=9, pub_list=list(range(OVER_CAPACITY_BIDS)))
+    with pytest.raises(ProofError, match="n_pad 4096 > cap 2048"):
+        tb.verify_batch([req, req], device="cpu")
+
+
+def test_prove_batch_refuses_over_capacity(no_tables):
+    reqs = [_req(tb, list_len=OVER_CAPACITY_BIDS, toggle=t) for t in (0, 202)]
+    with pytest.raises(ProofError, match="n_pad 4096 > cap 2048"):
+        tb.prove_batch(reqs, rng=np.random.default_rng(0), device="cpu")
 
 
 @pytest.mark.slow

@@ -9,6 +9,11 @@
 Everything runs on the CPU through the plain versions (device="cpu").
 """
 
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +22,7 @@ from dusk_blindbidproof_tpu.models import r1cs as jr1cs
 from dusk_blindbidproof_tpu.models.proof_struct import R1CSProof as JaxR1CSProof
 from dusk_blindbidproof_tpu.utils import host_oracle as oracle
 from dusk_blindbidproof_tpu.utils.merlin import Transcript as JaxTranscript
+from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp
 from dusk_blindbidproof_tpu_torch.models import r1cs as tr1cs
 from dusk_blindbidproof_tpu_torch.models.bulletproofs import (
     CompiledCircuit,
@@ -45,6 +51,7 @@ from test_transcript_protocol import (
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _cube_circuit(r1cs):
@@ -198,3 +205,90 @@ def test_entry_points_raise_without_gpu():
         resolve_device()
     with pytest.raises(RuntimeError):
         Prover([Transcript(LABEL)], cap=CAP)
+
+
+# ---------------------------------------------------------------------------
+# A circuit larger than the generator capacity: refused before any work
+# ---------------------------------------------------------------------------
+
+SMALL_CAP = 16  # below the chain circuit's n_pad = 32
+
+
+@pytest.fixture
+def no_tensor_work(monkeypatch):
+    """The tables become a stub and every way to tensor work fails if taken:
+    a refusal must come before all of it."""
+    def untouched(*args, **kwargs):
+        raise AssertionError("tensor work before the capacity check")
+
+    monkeypatch.setattr(bp, "generator_tables", lambda cap, device: None)
+    for name in ("_dev", "verify_scalars", "phase_a", "flatten_constraints"):
+        monkeypatch.setattr(bp, name, untouched)
+    monkeypatch.setattr(bp.msm, "msm", untouched)
+
+
+def test_verifier_refuses_a_circuit_over_capacity(chain, no_tensor_work):
+    verifier = Verifier([Transcript(CHAIN_LABEL)], cap=SMALL_CAP, device="cpu")
+    verifier.commit_batch([chain["commitments"]])
+    with pytest.raises(ProofError, match="n_pad 32 > cap 16"):
+        verifier.verify(chain["circuit"], [chain["proof"]], [chain["commitments"]],
+                        _limbs([chain["out"]], (1, 1)))
+
+
+def test_prover_refuses_a_circuit_over_capacity(chain, no_tensor_work):
+    a_L, a_R, a_O = (_limbs(v, (1, CHAIN_GATES)) for v in chain["witness"])
+    witness = ProverWitness(a_L=a_L, a_R=a_R, a_O=a_O, v=_limbs([CHAIN_A], (1, 1)),
+                            v_blinding=_limbs([CHAIN_BLIND], (1, 1)),
+                            publics=_limbs([chain["out"]], (1, 1)))
+    prover = Prover([Transcript(CHAIN_LABEL)], cap=SMALL_CAP, device="cpu")
+    with pytest.raises(ProofError, match="n_pad 32 > cap 16"):
+        prover.prove(chain["circuit"], witness)
+
+
+def test_prover_refusal_survives_python_O():
+    """The refusal is an explicit raise, not an assert that -O strips."""
+    script = textwrap.dedent(f"""
+        import sys
+        assert False, "-O did not strip asserts"
+        from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp
+        from dusk_blindbidproof_tpu_torch.models import r1cs
+        from dusk_blindbidproof_tpu_torch.models.transcript_protocol import ProofError
+        from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript
+        cs = r1cs.VerifierCS()
+        a = cs.commit_var()
+        x = r1cs.LC.of(a)
+        for _ in range({CHAIN_GATES}):
+            x = r1cs.LC.of(cs.multiply(x, r1cs.LC.of(a))[2])
+        circuit = bp.CompiledCircuit.compile(cs.artifact(), "cpu")
+        bp.generator_tables = lambda cap, device: None
+        prover = bp.Prover([Transcript(b"-O")], cap={SMALL_CAP}, device="cpu")
+        try:
+            prover.prove(circuit, None)
+        except ProofError as exc:
+            print("refused:", exc)
+            sys.exit(0)
+        sys.exit(1)
+    """)
+    proc = subprocess.run([sys.executable, "-O", "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "refused: circuit exceeds generator capacity: n_pad 32 > cap 16" in proc.stdout
+
+
+@pytest.mark.slow
+def test_jax_verifier_also_fails_over_capacity(chain):
+    """The reference's answer that the port's ProofError stands for: the JAX
+    package's Verifier at cap = 16 raises on the same proof too (its server
+    answers 0xff to it): a reshape of its unpadded scalars fails."""
+    from dusk_blindbidproof_tpu.models.bulletproofs import (
+        CompiledCircuit as JaxCircuit,
+        Verifier as JaxVerifier,
+    )
+    from dusk_blindbidproof_tpu.ops import limb as jlimb
+
+    jproof = JaxR1CSProof.from_bytes(chain["proof"].to_bytes())
+    verifier = JaxVerifier([JaxTranscript(CHAIN_LABEL)], cap=SMALL_CAP)
+    verifier.commit_batch([chain["commitments"]])
+    with pytest.raises(TypeError, match="cannot reshape"):
+        verifier.verify(JaxCircuit.compile(_chain_artifact(jr1cs)), [jproof],
+                        [chain["commitments"]], jlimb.ints_to_limbs_fast([chain["out"]], (1, 1)))

@@ -27,14 +27,15 @@ from dusk_blindbidproof_tpu.models import proof_struct as jps
 from dusk_blindbidproof_tpu.utils import tlv as jtlv
 from dusk_blindbidproof_tpu_torch import server as srv
 from dusk_blindbidproof_tpu_torch.errors import TlvError, UnexpectedEof
-from dusk_blindbidproof_tpu_torch.models import blindbid
+from dusk_blindbidproof_tpu_torch.models import blindbid, bulletproofs
 from dusk_blindbidproof_tpu_torch.models.bid import Bid, scalar_from_bits
 from dusk_blindbidproof_tpu_torch.models.proof_struct import BlindBidProof, R1CSProof
 from dusk_blindbidproof_tpu_torch.models.transcript_protocol import (
     IDENTITY_COMPRESSED,
     ProofError,
 )
-from dusk_blindbidproof_tpu_torch.ops import limb
+from dusk_blindbidproof_tpu_torch.ops import fused, limb
+from dusk_blindbidproof_tpu_torch.utils import curve_host
 from dusk_blindbidproof_tpu_torch.utils.curve_host import L
 from dusk_blindbidproof_tpu_torch.utils.tlv import (
     TlvReader,
@@ -468,14 +469,22 @@ def test_dispatch_prove_key_and_response():
 @pytest.mark.parametrize("exc, is_fault", [
     (ValueError("toggle out of range"), False),
     (ProofError("non-canonical point encoding"), False),
+    pytest.param(ProofError("circuit exceeds generator capacity: n_pad 4096 > cap 2048"),
+                 False, id="ProofError-capacity"),
     (TlvError("bad"), False),
     (AssertionError("circuit exceeds generator capacity"), False),
-    (RuntimeError("kernel add failed to launch: cudaError 700"), True),
+    (RuntimeError("zeros: Dimension size must be non-negative."), False),
+    (NotImplementedError("no kernel for this dtype"), False),
+    (RecursionError("maximum recursion depth exceeded"), False),
+    (fused.KernelError("kernel add failed to launch: cudaError 700"), True),
+    pytest.param(fused.KernelError("nvcc failed (1)"), True, id="KernelError-build"),
+    (torch.AcceleratorError("CUDA error: an illegal memory access was encountered"), True),
     (torch.OutOfMemoryError("CUDA out of memory"), True),
 ], ids=lambda v: type(v).__name__ if isinstance(v, Exception) else None)
 def test_dispatch_service_exception_contained(exc, is_fault):
-    """Every failure answers the error frame; one that is the device's and
-    not the request's is also kept and stops the server."""
+    """Every failure answers the error frame; only the device's own faults
+    (KernelError, AcceleratorError, OutOfMemoryError) are also kept and stop
+    the server.  A torch shape check's RuntimeError is not one of them."""
     body = _verify_body(_dummy_proof(n_toggles=2), scalars=(1, 2, 3), pub_list=())
     frame, server = _dispatch(_StubService(exc), b"\x02" + body)
     assert frame == srv.ERROR_FRAME
@@ -693,9 +702,9 @@ def test_live_server_batches_concurrent_connections(passes):
 
 
 def test_live_server_stops_on_a_device_fault(monkeypatch):
-    """A RuntimeError of the pass fails the request with the error frame and
+    """A KernelError of the pass fails the request with the error frame and
     ends serve_forever with that exception."""
-    boom = RuntimeError("kernel madd_scan failed to launch: cudaError 700")
+    boom = fused.KernelError("kernel madd_scan failed to launch: cudaError 700")
 
     def broken(items, device=None):
         raise boom
@@ -707,8 +716,128 @@ def test_live_server_stops_on_a_device_fault(monkeypatch):
         with _connect(path) as s:
             return client.send_frame(s, prove_req)
 
-    with pytest.raises(RuntimeError, match="madd_scan failed to launch"):
+    with pytest.raises(fused.KernelError, match="madd_scan failed to launch"):
         _serve(srv.BatchingService(device="cpu"), talk)
+
+
+def _torch_shape_error() -> RuntimeError:
+    """What torch raised for the unguarded pad of an over-capacity circuit."""
+    try:
+        torch.zeros((1, 2048 - 4096, limb.NLIMBS), dtype=torch.int32)
+    except RuntimeError as exc:
+        return exc
+    raise AssertionError("torch accepted a negative dimension")
+
+
+def test_live_server_serves_on_after_a_torch_shape_error(passes, monkeypatch):
+    """A plain RuntimeError of a pass (here torch's own shape check) is the
+    request's error frame, not a device fault: the daemon answers the next
+    request."""
+    shape_error = _torch_shape_error()
+    assert type(shape_error) is RuntimeError and not srv._is_device_fault(shape_error)
+
+    def broken(items, device=None):
+        raise shape_error
+
+    monkeypatch.setattr(blindbid, "prove_batch", broken)
+    prove_req, _ = _load("session_prove.bin")
+    verify_req, _ = _load("session_verify.bin")
+
+    def talk(path):
+        with _connect(path) as s:
+            return [client.send_frame(s, p) for p in (prove_req, verify_req, prove_req)]
+
+    out, server = _serve(srv.BatchingService(device="cpu"), talk)
+    assert out == [srv.ERROR_FRAME, b"\x01", srv.ERROR_FRAME]
+    assert server.fault is None
+    assert [kind for kind, _, _, _ in passes] == ["verify"]
+
+
+# ---------------------------------------------------------------------------
+# Hostile requests through the real passes on the CPU: refused before any
+# table or tensor work, each with the error frame, and the daemon serves on
+# ---------------------------------------------------------------------------
+
+OVER_CAPACITY_BIDS = 203  # n1 = 1442 + 3 * 203 = 2051 gates, n_pad = 4096 > 2048
+BASEPOINT = curve_host.ristretto_compress(curve_host.RISTRETTO_BASEPOINT)
+
+
+def _basepoint_verify(n_bids: int, rounds: int, a_i1: bytes = BASEPOINT) -> bytes:
+    """An opcode-2 request whose points are the Ristretto basepoint's encoding
+    (A_I1 as given) and whose scalars are canonical."""
+    pts = {k: BASEPOINT for k in ("A_O1", "S1", "T_1", "T_3", "T_4", "T_5", "T_6")}
+    r1cs = R1CSProof(A_I1=a_i1, **pts, A_I2=IDENTITY_COMPRESSED, A_O2=IDENTITY_COMPRESSED,
+                     S2=IDENTITY_COMPRESSED, t_x=1, t_x_blinding=2, e_blinding=3,
+                     ipp_L=[BASEPOINT] * rounds, ipp_R=[BASEPOINT] * rounds, ipp_a=4, ipp_b=5)
+    proof = BlindBidProof(r1cs=r1cs, commitments=[BASEPOINT] * 4, t_c=[BASEPOINT] * n_bids)
+    return b"\x02" + _verify_body(proof, scalars=(7, 8, 9),
+                                   pub_list=range(1000, 1000 + n_bids))
+
+
+HOSTILE = {
+    "verify-203": lambda: _basepoint_verify(OVER_CAPACITY_BIDS, 12),
+    "prove-203": lambda: b"\x01" + _prove_body(pub_list=range(1000, 1000 + OVER_CAPACITY_BIDS),
+                                                toggle=0),
+    "verify-0": lambda: _basepoint_verify(0, 11),
+    "rounds-10": lambda: _basepoint_verify(4, 10),
+    "odd-A_I1": lambda: _basepoint_verify(4, 11, a_i1=bytes([BASEPOINT[0] | 1]) + BASEPOINT[1:]),
+}
+# the requests refused before the prover or verifier is made
+NO_TABLES = ("verify-203", "prove-203", "verify-0")
+
+
+@pytest.fixture
+def device_calls(monkeypatch):
+    """generator_tables stubbed, and it and the device phases of the prover
+    and verifier recorded: a refused request reaches none of the phases.  A
+    phase that is reached also raises, which the server would only answer
+    with the error frame: the record is what the tests read."""
+    calls = []
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            calls.append(name)
+            if name != "generator_tables":
+                raise AssertionError(f"{name} reached by a refused request")
+        return record
+
+    monkeypatch.setattr(bulletproofs, "generator_tables", recorder("generator_tables"))
+    for name in ("phase_a", "verify_scalars"):
+        monkeypatch.setattr(bulletproofs, name, recorder(name))
+    monkeypatch.setattr(bulletproofs.ristretto, "decompress", recorder("decompress"))
+    monkeypatch.setattr(bulletproofs.msm, "msm", recorder("msm"))
+    return calls
+
+
+@pytest.mark.parametrize("name", NO_TABLES)
+def test_dispatch_refuses_hostile_request_through_the_real_service(device_calls, name):
+    """The real BatchingService on the CPU: the error frame, no tables built,
+    no fault kept, the server not stopped."""
+    service = srv.BatchingService(device="cpu")
+    service.start()
+    try:
+        frame, server = _dispatch(service, HOSTILE[name]())
+    finally:
+        service.close()
+    assert frame == srv.ERROR_FRAME
+    assert server.fault is None and not server._stop.is_set()
+    assert device_calls == []
+
+
+def test_live_server_answers_hostile_requests_and_serves_on(device_calls):
+    """A live CPU daemon with the real passes: each hostile request answers
+    the error frame, the over-capacity pair and the empty list before any
+    table is built, and the daemon answers every next request."""
+    def talk(path):
+        with _connect(path) as s:
+            return {name: client.send_frame(s, make()) for name, make in HOSTILE.items()}
+
+    out, server = _serve(srv.BatchingService(device="cpu"), talk)
+    assert out == {name: srv.ERROR_FRAME for name in HOSTILE}
+    assert server.fault is None
+    # only the two list-length-4 requests made a verifier, and neither
+    # reached a device phase
+    assert device_calls == ["generator_tables", "generator_tables"]
 
 
 # ---------------------------------------------------------------------------
