@@ -63,7 +63,27 @@ Phases, in order; any failure exits non-zero:
      sharded_bucket_step at 2 x 2, dryrun_multichip; every kernel must have
      launched in the ranks (counts summed over ranks).  A rank's exception,
      non-zero exit or timeout fails the run;
-  7. the kernels line (JSON), the card line, then the result line.
+  7. the generic R1CS path on the chain circuit of benchmarks/ipa_bench.py:47-69
+     (one committed input v0 = 3, n_pad - 1 gates w_{i+1} = w_i * w_i), built
+     with the port's models/r1cs.py (`chain_inputs`) and driven through
+     CompiledCircuit.compile, Prover(cap = n_pad).commit_batch / prove and
+     Verifier(cap = n_pad).commit_batch / verify:
+     a. n = cap = 2^10, B = 1: the proof bytes must equal the frozen vector
+        tests/data/ipa_chain_n1024.hex (made by the JAX package's host
+        oracle), verify must accept it and reject it with t_x + 1;
+     b. n = cap = 2^16 at B = CHAIN_BATCH: the 131074-generator tables (host
+        derivation and device build timed apart), one warm-up round trip,
+        CHAIN_TRIPS timed round trips (s/op median and spread), every proof
+        verifies and one with ipp_a + 1 is rejected in its own place, one round
+        trip with the spans on and the launch counts set to 0 just before it and
+        read just after (every kernel must have launched), the peak device
+        memory, and the device-busy share of one round trip under
+        torch.profiler (kernel events, as scripts/profile_port.py reckons it);
+     c. the kernels at 7b's shapes: madd_scan on phase A's and an IPA round's
+        items, double_chain on the 131074 table points, K1 mod l on B x 2^16
+        rows, exact against canon(plain) (the scans and the chain on slices of
+        rows, LARGE_SLICE), timed as in phase 2;
+  8. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
@@ -197,6 +217,22 @@ MESH_TRIPS = 3
 MESH_UNEVEN_B = (5, 3)  # batches at 4 x 1 that do not divide: 2 + 1 + 1 + 1, and an empty rank
 MESH_MSM_SEED = 11
 MESH_TIMEOUT = 600  # s, for the whole phase 6 job
+# phase 7: the chain circuit of benchmarks/ipa_bench.py:47-69, its transcript
+# label, input and blinding; the prover's 32 seed bytes come from
+# default_rng(CHAIN_SEED)
+CHAIN_LABEL = b"ipa-bench"
+CHAIN_V0, CHAIN_BLIND = 3, 7
+CHAIN_SEED = 1024
+FROZEN_CHAIN = ROOT / "tests" / "data" / "ipa_chain_n1024.hex"
+CHAIN_SMALL = 1 << 10  # 7a: n = cap, B = 1, against the frozen bytes
+CHAIN_LARGE = 1 << 16  # 7b: n = cap, BASELINE.md config 3's top size
+# 7b's batch: the largest power of two up to the server's 16 that fits the
+# card (scripts/chain_batch_torch.py measures the peak memory of each)
+CHAIN_BATCH = 16
+CHAIN_TRIPS = 3  # timed round trips of 7b
+# 7c: plain versions run on this many blocks (scans) or points (the chain) at
+# each end of the kernel's rows; K1 is compared whole
+LARGE_SLICE = 2048
 
 
 def fail(msg: str) -> None:
@@ -1075,6 +1111,330 @@ def mesh_phase(digests: list[str], s_per_op_direct: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the generic R1CS path at n = cap = 2^10 and 2^16
+# ---------------------------------------------------------------------------
+
+
+def chain_inputs(n_pad: int):
+    """The circuit and witness of benchmarks/ipa_bench.py:47-69, built with the
+    port's models/r1cs.py: one committed input v0 = CHAIN_V0 and n_pad - 1
+    gates w_{i+1} = w_i * w_i.  Returns (artifact, a_L, a_R, a_O), the
+    witness as python ints."""
+    from dusk_blindbidproof_tpu_torch.models.r1cs import LC, VerifierCS
+    from dusk_blindbidproof_tpu_torch.utils.curve_host import L
+
+    cs = VerifierCS()
+    cur = LC.of(cs.commit_var())
+    n_gates = n_pad - 1  # leaves room for padding to the power of two
+    for _ in range(n_gates):
+        _, _, o = cs.multiply(cur, cur)
+        cur = LC.of(o)
+    a_L, a_R, a_O = [], [], []
+    x = CHAIN_V0
+    for _ in range(n_gates):
+        a_L.append(x)
+        a_R.append(x)
+        x = x * x % L
+        a_O.append(x)
+    return cs.artifact(), a_L, a_R, a_O
+
+
+def chain_witness(n_pad: int, B: int, a_L, a_R, a_O):
+    """The ProverWitness of B proofs of the chain, every row the same (as
+    ipa_bench.py has it), no public inputs."""
+    from dusk_blindbidproof_tpu_torch.models.bulletproofs import ProverWitness
+    from dusk_blindbidproof_tpu_torch.ops import limb
+
+    def rows(vals):
+        arr = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
+        arr[:, :len(vals)] = limb.ints_to_limbs_fast(vals)
+        return arr
+
+    def scalar(v):
+        return np.broadcast_to(limb.ints_to_limbs_fast([v]), (B, 1, limb.NLIMBS)).copy()
+
+    return ProverWitness(a_L=rows(a_L), a_R=rows(a_R), a_O=rows(a_O), v=scalar(CHAIN_V0),
+                         v_blinding=scalar(CHAIN_BLIND),
+                         publics=np.zeros((B, 0, limb.NLIMBS), dtype=np.int32))
+
+
+def chain_prove(circuit, witness, cap: int, device):
+    """Prover(cap) -> commit_batch -> prove over the witness's rows: returns
+    (commitments, proofs)."""
+    from dusk_blindbidproof_tpu_torch.models.bulletproofs import Prover
+    from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript
+
+    B = witness.a_L.shape[0]
+    prover = Prover([Transcript(CHAIN_LABEL) for _ in range(B)], cap=cap, device=device)
+    commitments = prover.commit_batch([[CHAIN_V0]] * B, [[CHAIN_BLIND]] * B)
+    seed = np.random.default_rng(CHAIN_SEED).bytes(32)
+    return commitments, prover.prove(circuit, witness, seed=seed)
+
+
+def chain_verify(circuit, commitments, proofs, cap: int, device) -> list[bool]:
+    """Verifier(cap) -> commit_batch -> verify of the batch."""
+    from dusk_blindbidproof_tpu_torch.models.bulletproofs import Verifier
+    from dusk_blindbidproof_tpu_torch.ops import limb
+    from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript
+
+    B = len(proofs)
+    verifier = Verifier([Transcript(CHAIN_LABEL) for _ in range(B)], cap=cap, device=device)
+    verifier.commit_batch(commitments)
+    return verifier.verify(circuit, proofs, commitments,
+                           np.zeros((B, 0, limb.NLIMBS), dtype=np.int32))
+
+
+def bumped(proof, field: str):
+    """A copy of `proof` with its scalar `field` plus one (mod l)."""
+    from dusk_blindbidproof_tpu_torch.models.proof_struct import R1CSProof
+    from dusk_blindbidproof_tpu_torch.utils.curve_host import L
+
+    out = R1CSProof.from_bytes(proof.to_bytes())
+    setattr(out, field, (getattr(out, field) + 1) % L)
+    return out
+
+
+def chain_small(dev) -> None:
+    """Phase 7a: n = cap = 2^10, B = 1, against the JAX package's bytes."""
+    from dusk_blindbidproof_tpu_torch.models.bulletproofs import CompiledCircuit
+
+    t0 = time.perf_counter()
+    artifact, *wit = chain_inputs(CHAIN_SMALL)
+    circuit = CompiledCircuit.compile(artifact, dev)
+    commitments, proofs = chain_prove(circuit, chain_witness(CHAIN_SMALL, 1, *wit),
+                                      CHAIN_SMALL, dev)
+    if proofs[0].to_bytes().hex() != FROZEN_CHAIN.read_text().strip():
+        fail(f"the n = {CHAIN_SMALL} chain proof differs from {FROZEN_CHAIN.name}")
+    oks = chain_verify(circuit, commitments * 2, [proofs[0], bumped(proofs[0], "t_x")],
+                       CHAIN_SMALL, dev)
+    if oks != [True, False]:
+        fail(f"n = {CHAIN_SMALL}: verify gave {oks} for the proof and the one with t_x + 1")
+    print(f"chain n = cap = {CHAIN_SMALL}, B = 1: proof bytes equal {FROZEN_CHAIN.name}; "
+          f"verify [True], t_x + 1 [False] ({time.perf_counter() - t0:.2f} s incl. tables)",
+          flush=True)
+
+
+# entry functions of csrc/edwards_kernels.cu, as the profiler names them
+OWN_KERNELS = ("point_step_kernel", "point_scan_kernel", "point_double_kernel",
+               "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel")
+
+
+def kernel_rows(prof) -> list[dict]:
+    """The kernel events of a torch.profiler run, largest device time first
+    (kernel events only: the aten ops that launched them carry the same
+    device time again)."""
+    rows = [
+        {"name": e.key, "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def profiled(fn) -> tuple[list[dict], float]:
+    """Runs fn() under torch.profiler (CPU and CUDA activities): (kernel
+    rows, wall seconds of the call)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    return kernel_rows(prof), wall
+
+
+def chain_large(dev) -> dict:
+    """Phase 7b: n = cap = 2^16 at batch CHAIN_BATCH.  Returns the launch
+    counts of the counted round trip."""
+    from dusk_blindbidproof_tpu_torch.models.bulletproofs import (
+        CompiledCircuit, generator_tables,
+    )
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, msm
+    from dusk_blindbidproof_tpu_torch.utils import profiling
+
+    n, B = CHAIN_LARGE, CHAIN_BATCH
+    t0 = time.perf_counter()
+    artifact, *wit = chain_inputs(n)
+    t1 = time.perf_counter()
+    circuit = CompiledCircuit.compile(artifact, dev)
+    witness = chain_witness(n, B, *wit)
+    t2 = time.perf_counter()
+    points = msm._host_points(n)  # G | H | B | B_blinding, derived on the host
+    t3 = time.perf_counter()
+    edwards.from_host(points)  # their limbs, on the host alone
+    t4 = time.perf_counter()
+    generator_tables(n, dev)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    tables_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"chain n = cap = {n}: synthesis {t1 - t0:.2f} s, compile + witness of B = {B} "
+          f"{t2 - t1:.2f} s; tables of {len(points)} generators: host derivation "
+          f"{t3 - t2:.2f} s, their limbs on the host {t4 - t3:.2f} s, generator_tables "
+          f"{t5 - t4:.2f} s (the limbs again, the copy, double_chain and the Niels form); "
+          f"{tables_gb:.3f} GB allocated after", flush=True)
+
+    def round_trip():
+        commitments, proofs = chain_prove(circuit, witness, n, dev)
+        oks = chain_verify(circuit, commitments, proofs, n, dev)
+        torch.cuda.synchronize()
+        return commitments, proofs, oks
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    commitments, proofs, oks = round_trip()
+    warm = time.perf_counter() - t0
+    if oks != [True] * B:
+        fail(f"chain n = {n}: the warm-up round trip gave {oks}")
+    s_per_op = []
+    for _ in range(CHAIN_TRIPS):
+        t0 = time.perf_counter()
+        _, _, oks = round_trip()
+        s_per_op.append((time.perf_counter() - t0) / B)
+        if oks != [True] * B:
+            fail(f"chain n = {n}: a timed round trip gave {oks}")
+    print(f"chain n = {n} B = {B}: s/op over {CHAIN_TRIPS} round trips: median "
+          f"{np.median(s_per_op)}, min {min(s_per_op)}, max {max(s_per_op)}, all {s_per_op} "
+          f"(warm-up {warm:.3f} s)", flush=True)
+    bad = B // 2
+    got = chain_verify(circuit, commitments,
+                       [bumped(p, "ipp_a") if i == bad else p for i, p in enumerate(proofs)],
+                       n, dev)
+    if got != [i != bad for i in range(B)]:
+        fail(f"chain n = {n}: ipp_a + 1 at place {bad} gave {got}")
+    del commitments, proofs
+
+    profiling.enable()
+    profiling.reset()
+    fused.reset_launch_counts()
+    round_trip()
+    counts = fused.launch_counts()
+    profiling.enable(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(profiling.report(), flush=True)
+    print(f"chain n = {n} B = {B}: every proof verifies, ipp_a + 1 rejected at place {bad} "
+          f"only; launches in one round trip: {counts}; peak device memory {peak_gb:.3f} GB "
+          f"(torch.cuda.max_memory_allocated over the trips)", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched at n = {n}: {missing}")
+
+    rows, wall = profiled(round_trip)
+    busy = sum(r["device_ms"] for r in rows)
+    print(f"chain n = {n} B = {B}: profiled round trip {wall:.4f} s wall, device busy "
+          f"{busy:.1f} ms, share {busy / (wall * 1e3)}", flush=True)
+    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
+    print(f"  the port's own kernels {sum(r['device_ms'] for r in own):.3f} ms; the 12 "
+          f"largest, then every own kernel:", flush=True)
+    for r in rows[:12] + own:
+        print(f"  {r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}", flush=True)
+    return counts
+
+
+def check_large_kernels(dev, counts: dict) -> dict:
+    """Phase 7c: the kernels at phase 7b's shapes, exact against
+    canon(plain).  The scans and the chain are compared on LARGE_SLICE blocks
+    or points at each end of their rows (the first row's head, with the
+    all-8192 and identity items, and the last row's tail, with the padding);
+    the plain versions over all of it would take minutes.  Returns the rows
+    by kernel."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb, msm
+
+    n, B, nl, R = CHAIN_LARGE, CHAIN_BATCH, limb.NLIMBS, BLOCK_R
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2016)
+    results: dict[str, list] = {}
+
+    def rand(shape):
+        return torch.randint(0, 8193, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    def case(name, label, kern, pairs, ctx, n_bytes, n_ops, reps, plain_of):
+        """pairs: (pick, ref) with pick(kernel output) and ref() the same
+        tensors from the plain version on a slice."""
+        got = kern()
+        err, plain = 0, 0.0
+        for pick, ref in pairs:
+            want = ref()
+            mine = pick(got)
+            mine, want = ((mine,), (want,)) if isinstance(want, torch.Tensor) else (mine, want)
+            for g, w in zip(mine, want):
+                if g.shape != w.shape:
+                    fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
+                err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
+            plain += cuda_ms(ref, 1)
+        if err:
+            fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
+        del got
+        ms = device_ms(kern, reps)
+        bms, by = bound_ms(n_bytes, n_ops)
+        row = dict(label=label, ms=ms, bound_ms=bms, bound_by=by, plain_ms=plain,
+                   plain_of=plain_of, launches=counts[name])
+        results.setdefault(name, []).append(row)
+        print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms, bound "
+              f"{bms:.6f} ms ({by}), plain {plain:.3f} ms on {plain_of}; "
+              f"{counts[name]} launches a round trip", flush=True)
+
+    def scan_items(shape):
+        x = rand((*shape, 4, nl))
+        ident = edwards.identity_niels(device=dev)
+        flat = x.view(-1, shape[-1], 4, nl)
+        flat[0, 0] = 8192
+        flat[0, 1] = ident
+        flat[-1, -40:-33] = ident
+        return msm._blocked(x, niels=True)[0]
+
+    # madd_scan: phase A's three MSMs, one at a time, and an IPA round's L and R
+    for label, shape in (("phase A, one of its three MSMs", (B, (2 * n + 2) * WINDOWS)),
+                         ("IPA round, L and R", (B, 2, (n + 1) * WINDOWS))):
+        x = scan_items(shape)
+        flat = x.view(-1, x.shape[-3], 4, nl)
+        m = x.numel() // (4 * nl)
+        C, S = flat.shape[1] // R, LARGE_SLICE
+        ends = ((0, 0, S), (flat.shape[0] - 1, C - S, C))
+
+        def pick(got, b, c0, c1):
+            within, totals = got
+            return (within.view(flat.shape)[b, c0 * R:c1 * R],
+                    totals.view(flat.shape[0], C, 4, nl)[b, c0:c1])
+
+        pairs = [(lambda got, b=b, c0=c0, c1=c1: pick(got, b, c0, c1),
+                  lambda b=b, c0=c0, c1=c1: fused.madd_scan_ref(flat[b, c0 * R:c1 * R], R))
+                 for b, c0, c1 in ends]
+        case("madd_scan", f"{label}, {m} items in {m // R} blocks of {R}",
+             lambda: fused.madd_scan(x, R), pairs, limb.FP,
+             (m * (SCAN_ITEM_ROWS["madd_scan"] + 4) + m // R * 4) * FE_BYTES,
+             m * SCAN_FIELD_MULS["madd_scan"] * OPS_PER_FIELD_MUL, 3,
+             f"2 x {S} blocks")
+        del x, flat
+
+    # double_chain: the generator tables' points
+    npts = 2 * n + 2
+    p = rand((npts, 4, nl))
+    p[0] = 8192
+    p[1] = edwards.identity(device=dev)
+    ends = torch.cat([torch.arange(LARGE_SLICE, device=dev),
+                      torch.arange(npts - LARGE_SLICE, npts, device=dev)])
+    doubles = (WINDOWS - 1) * WINDOW_STEPS
+    case("double_chain", f"generator tables, {npts} points x {WINDOWS} windows x "
+         f"{WINDOW_STEPS} steps", lambda: fused.double_chain(p, WINDOWS, WINDOW_STEPS),
+         [(lambda got: got[ends],
+           lambda: fused.double_chain_ref(p[ends], WINDOWS, WINDOW_STEPS))], limb.FP,
+         npts * (1 + WINDOWS) * 4 * FE_BYTES,
+         npts * (doubles * OPS_PER_DOUBLE_XYZ + (WINDOWS - 1) * OPS_PER_FIELD_MUL), 3,
+         f"2 x {LARGE_SLICE} points")
+    del p
+
+    # K1 mod l: the IPA fold's and verify_scalars' B x n rows, compared whole
+    a, b = rand((B, n, nl)), rand((B, n, nl))
+    a[0, 0], b[0, 0] = 8192, 8192
+    a[0, 1], b[0, 2] = 0, 0
+    rows = B * n
+    case("mul_rows_fl", f"IPA fold, {rows} rows", lambda: fused.mul_rows(limb.FL, a, b),
+         [(lambda got: got, lambda: fused.mul_rows_ref(limb.FL, a, b))], limb.FL,
+         rows * 3 * FE_BYTES, rows * OPS_PER_FIELD_MUL, 20, f"all {rows} rows")
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1082,6 +1442,7 @@ def main() -> None:
         from dusk_blindbidproof_tpu_torch.ops import fused
     except ImportError as exc:
         fail(f"the port's package is not importable here ({exc})")
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1102,18 +1463,25 @@ def main() -> None:
     server_entry_point()
     scripts_on_card()
     mesh_counts = mesh_phase(digests, float(np.median(s_per_op)))
+    torch.cuda.empty_cache()
+    chain_small(dev)
+    large_counts = chain_large(dev)
+    torch.cuda.empty_cache()
+    large = check_large_kernels(dev, large_counts)
 
     line = []
     for name, r in kernels.items():
         line.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": counts[name], "launches_server": server_counts[name],
-            "launches_mesh": mesh_counts[name],
+            "launches_mesh": mesh_counts[name], "launches_large": large_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            "large_shapes": large.get(name, []),
         })
-    print(f"s/op at B=16: median {np.median(s_per_op)} over {TIMED_TRIPS} round trips")
+    print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s; s/op at B=16: median "
+          f"{np.median(s_per_op)} over {TIMED_TRIPS} round trips")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -314,25 +314,31 @@ def phase_a(tables, a_L, a_R, a_O, s_L, s_R, blinds):
     """Vector commitments A_I1, A_O1, S1 for a batch.
 
     a_*, s_*: [B, n_pad, NL] (s zero beyond n1); blinds: [B, 3, NL].
-    Returns canonical points [B, 3, 4, NL]."""
+    Returns canonical points [B, 3, 4, NL].
+
+    The three MSMs run one after another, each over [B, 2cap+2] digits: the
+    bucket MSM keeps about three copies of its sorted items (336 bytes each),
+    and one stacked [B, 3, 2cap+2] MSM at cap = 2^16 and B = 16 would need
+    some 127 GB.  An MSM's rows are independent, so the points are the ones
+    the stacked MSM gives."""
     cap = tables.cap
     B, n_pad, _ = a_L.shape
     zero = torch.zeros_like(a_L)
     zpad = _cap_pad(B, n_pad, cap, a_L.device)
     zero1 = torch.zeros((B, 1, NLIMBS), dtype=torch.int32, device=a_L.device)
 
-    def row(g, h, blind):
-        return torch.cat([g, *zpad, h, *zpad, zero1, blind[:, None, :]], dim=1)
+    def commit(g, h, blind):  # [B, 2cap+2, NL] digits -> [B, 4, NL]
+        return commit_vectors(
+            tables, torch.cat([g, *zpad, h, *zpad, zero1, blind[:, None, :]], dim=1))
 
-    digits = torch.stack(
+    return torch.stack(
         [
-            row(a_L, a_R, blinds[:, 0]),
-            row(a_O, zero, blinds[:, 1]),
-            row(s_L, s_R, blinds[:, 2]),
+            commit(a_L, a_R, blinds[:, 0]),
+            commit(a_O, zero, blinds[:, 1]),
+            commit(s_L, s_R, blinds[:, 2]),
         ],
         dim=1,
-    )  # [B, 3, 2cap+2, NL]
-    return commit_vectors(tables, digits)
+    )
 
 
 def phase_t(a_L, a_R, a_O, s_L, s_R, wL, wR, wO, y_pows, y_inv_pows):

@@ -14,7 +14,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -24,10 +23,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (request builders shared with the smoke run)
-
-# entry functions of csrc/edwards_kernels.cu, as the profiler names them
-OWN_KERNELS = ("point_step_kernel", "point_scan_kernel", "point_double_kernel",
-               "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel")
 
 
 def main() -> None:
@@ -51,23 +46,10 @@ def main() -> None:
             sys.exit("round trip did not verify")
 
     round_trip()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        round_trip()
-        wall = time.perf_counter() - t0
-
-    # kernel events only: the aten ops that launched them carry the same
-    # device time again
-    rows = [
-        {"name": e.key, "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows, wall = chip_smoke.profiled(round_trip)
     busy_ms = sum(r["device_ms"] for r in rows)
     # the hand-written kernels, however small their share
-    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
+    own = [r for r in rows if any(k in r["name"] for k in chip_smoke.OWN_KERNELS)]
     summary = {
         "card": torch.cuda.get_device_name(0),
         "batch": args.batch,
