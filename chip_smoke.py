@@ -83,7 +83,34 @@ Phases, in order; any failure exits non-zero:
         items, double_chain on the 131074 table points, K1 mod l on B x 2^16
         rows, exact against canon(plain) (the scans and the chain on slices of
         rows, LARGE_SLICE), timed as in phase 2;
-  8. the kernels line (JSON), the card line, then the result line.
+  8. the full list: BlindBid at FULL_LIST = 202 bids, the longest list the
+     generators hold (n1 = 1442 + 3 x 202 = n = 2048, 206 commitments, 205
+     publics; the verifier's dynamic MSM has 236 points a proof, 4720 window
+     items, so it takes the bucket path where list length 4 takes the bit
+     path):
+     a. B = 1: prove with rng = default_rng(42) must give the frozen vector
+        tests/data/blindbid_L202_seed42.hex (made by the JAX package), verify
+        must accept it and reject a wrong seed;
+     b. B = 16: one warm-up round trip, TIMED_TRIPS timed round trips (s/op
+        median and spread, beside phase 4's), every proof verifies and a wrong
+        seed is rejected in its own place only; one round trip with the spans
+        on and the launch counts set to 0 just before it and read just after,
+        in which the verifier's dynamic MSM must have launched add_scan (its
+        leaf) and the one-step launches of K4 and K1 mod p must not exceed
+        phase 4's; the device-busy share of one round trip under torch.profiler;
+     c. the kernels at 8b's shapes, exact against canon(plain) and timed as in
+        phase 2: add_scan on the verifier's own leaf items (decompressed,
+        window-scaled, sorted proof points, identity-padded to whole blocks),
+        then with all-8192 and identity rows put in; double_chain, sqr_chain
+        (k = 2, 50, 100) and K1 mod p on the B x 236 rows of the verifier;
+     d. the server in this process (as in 5a), the circuit cache emptied
+        first so that the first 202-bid request builds its circuit inside the
+        request (its latency printed apart): 16 connections at once at 202
+        bids, then 8 at 4 bids and 8 at 202 bids at once, each proving and
+        then verifying its own proof; every batch flushed holds one list
+        length, and both lengths are flushed apart.
+     Phase 8 takes about 70 s of the run's 370 s on an NVIDIA H100 80GB HBM3;
+  9. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
@@ -233,6 +260,15 @@ CHAIN_TRIPS = 3  # timed round trips of 7b
 # 7c: plain versions run on this many blocks (scans) or points (the chain) at
 # each end of the kernel's rows; K1 is compared whole
 LARGE_SLICE = 2048
+# phase 8: the longest bid list the generators hold, n1 = 1442 + 3 x 202 = 2048
+FULL_LIST = 202
+FROZEN_FULL_LIST = ROOT / "tests" / "data" / "blindbid_L202_seed42.hex"
+# dynamic points of one proof in the verifier: the 4 + 202 commitments,
+# T_1,3,4,5,6, A_I1 A_O1 S1 and 11 rounds of L_j R_j (phase 2's are the identity)
+FULL_LIST_POINTS = (4 + FULL_LIST) + 5 + 3 + 2 * 11
+FULL_LIST_BATCH = 16  # 8b's batch, the server's cap
+FULL_LIST_BAD = 9  # the place whose seed is changed in 8b's wrong-seed pass
+FULL_LIST_CLIENTS = 16  # 8d's connections at once: all at 202 bids, then half and half
 
 
 def fail(msg: str) -> None:
@@ -321,6 +357,7 @@ class KernelChecks:
         self.dev = dev
         self.gen = np.random.default_rng(2024)
         self.results = {}
+        self.rows = []  # every case, in order
 
     def rand(self, shape):
         x = self.gen.integers(0, 8193, size=shape, dtype=np.int32)
@@ -349,8 +386,10 @@ class KernelChecks:
         print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms "
               f"({eager:.4f} ms a call in an eager loop), plain {plain:.3f} ms, "
               f"bound {bms:.6f} ms ({by})", flush=True)
-        self.results.setdefault(name, dict(max_abs_err=err, ms=ms, eager_ms=eager,
-                                           plain_ms=plain, bound_ms=bms, bound_by=by))
+        row = dict(max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=bms,
+                   bound_by=by)
+        self.results.setdefault(name, row)
+        self.rows.append(dict(name=name, label=label, **row))
         return ms
 
 
@@ -481,12 +520,12 @@ def request_inputs(i: int) -> dict:
                 extra=[1000 + 3 * i + j for j in range(3)], pos=(2 + i) % 4)
 
 
-def requests(n: int):
+def requests(n: int, inputs=request_inputs):
     from dusk_blindbidproof_tpu_torch.models.blindbid import make_prove_request
 
     out = []
     for i in range(n):
-        r = request_inputs(i)
+        r = inputs(i)
         out.append(make_prove_request(d=r["d"], k=r["k"], seed=r["seed"],
                                       pub_list_extra=r["extra"], toggle_pos=r["pos"]))
     return out
@@ -666,7 +705,8 @@ def wait_for_socket(path: str, alive, what: str) -> None:
 
 class LiveServer:
     """The port's server on an event loop of its own in a background thread.
-    The batch sizes the service flushes are recorded by wrapping its `_flush`.
+    The batches the service flushes are recorded by wrapping its `_flush`:
+    (kind, size, the list lengths of its requests).
     Leaving the `with` block stops the server, joins the thread and raises
     what the thread raised (a device fault included)."""
 
@@ -674,12 +714,13 @@ class LiveServer:
         from dusk_blindbidproof_tpu_torch.server import BatchingService, BlindBidServer
 
         self.path = path
-        self.flushed: list[tuple[str, int]] = []
+        self.flushed: list[tuple[str, int, tuple]] = []
         service = BatchingService(device=dev)
         flush = service._flush
 
         async def recording_flush(kind, q):
-            self.flushed.append((kind, len(q)))
+            lens = tuple(sorted({len(item.pub_list) for item, _ in q}))
+            self.flushed.append((kind, len(q), lens))
             await flush(kind, q)
 
         service._flush = recording_flush
@@ -712,17 +753,17 @@ class LiveServer:
         if self.raised is not None:
             raise self.raised
 
-    def take_flushed(self) -> list[tuple[str, int]]:
+    def take_flushed(self) -> list[tuple[str, int, tuple]]:
         out, self.flushed = self.flushed, []
         return out
 
 
-def clients_at_once(client, path: str, n: int) -> float:
-    """n connections, each with a bidder's own request: every prove request
-    goes out before the first answer is read, then every connection sends the
-    verify request for its own proof.  Returns the wall seconds; raises on an
-    error frame or a proof that is not accepted."""
-    bodies = [client.build_prove_body(**request_inputs(i)) for i in range(n)]
+def clients_at_once(client, path: str, n: int, inputs=request_inputs) -> float:
+    """n connections, each with a bidder's own request (`inputs(i)`): every
+    prove request goes out before the first answer is read, then every
+    connection sends the verify request for its own proof.  Returns the wall
+    seconds; raises on an error frame or a proof that is not accepted."""
+    bodies = [client.build_prove_body(**inputs(i)) for i in range(n)]
     socks = [connect(path) for _ in range(n)]
 
     def exchange(opcode, payloads):
@@ -878,7 +919,7 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
                 flushed = live.take_flushed()
                 after = fused.launch_counts()
                 for kind in ("prove", "verify"):
-                    sizes = [size for k, size in flushed if k == kind]
+                    sizes = [size for k, size, _ in flushed if k == kind]
                     if sum(sizes) != n or max(sizes) > MAX_BATCH:
                         fail(f"{n} at once: {kind} batches {sizes}")
                     sizes_seen += sizes
@@ -1435,6 +1476,270 @@ def check_large_kernels(dev, counts: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: BlindBid at the full list
+# ---------------------------------------------------------------------------
+
+
+def full_list_inputs(i: int) -> dict:
+    """Bidder i of a 202-bid list.  Bidder 0's request is the one of
+    tests/data/blindbid_L202_seed42.hex: its bid at place 101, the other 201
+    bids 1000, 1001, ..."""
+    return dict(d=123456789 + 7919 * i, k=987654321 + 104729 * i, seed=55555 + i,
+                extra=[1000 + 3 * i + j for j in range(FULL_LIST - 1)],
+                pos=(101 + 13 * i) % FULL_LIST)
+
+
+class LeafScans:
+    """Inside the `with` block, `msm._bucket_scan_rows` (the leaf scan of
+    every bucket MSM) is wrapped: each call records whether its items were
+    affine-Niels, their shape and the add_scan launches it made, and the
+    extended-point items of the last such call are kept."""
+
+    def __enter__(self):
+        from dusk_blindbidproof_tpu_torch.ops import fused, msm
+
+        self.calls: list[tuple[bool, tuple, int]] = []
+        self.leaf = None
+        self._msm, self._scan = msm, msm._bucket_scan_rows
+
+        def recording(pts_sorted, niels):
+            before = fused.launch_counts()["add_scan"]
+            out = self._scan(pts_sorted, niels)
+            self.calls.append((niels, tuple(pts_sorted.shape),
+                               fused.launch_counts()["add_scan"] - before))
+            if not niels:
+                self.leaf = pts_sorted
+            return out
+
+        msm._bucket_scan_rows = recording
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self._msm._bucket_scan_rows = self._scan
+
+
+def full_list_b1(dev) -> None:
+    """Phase 8a: the frozen 202-bid proof."""
+    from dusk_blindbidproof_tpu_torch.models.blindbid import (
+        proof_blob, prove_batch, verify_batch,
+    )
+
+    reqs = requests(1, full_list_inputs)
+    t0 = time.perf_counter()
+    proofs = prove_batch(reqs, rng=np.random.default_rng(42), device=dev)
+    t1 = time.perf_counter()
+    if proof_blob(proofs[0]).hex() != FROZEN_FULL_LIST.read_text().strip():
+        fail(f"B=1 proof at {FULL_LIST} bids differs from {FROZEN_FULL_LIST.name}")
+    ok = verify_batch(verify_requests(reqs, proofs), device=dev)
+    bad = verify_batch(verify_requests(reqs, proofs, seed_bump=1), device=dev)
+    t2 = time.perf_counter()
+    if ok != [True] or bad != [False]:
+        fail(f"B=1 at {FULL_LIST} bids: verify gave {ok} for the proof and {bad} for a wrong seed")
+    print(f"full list, {FULL_LIST} bids, B=1: proof bytes equal {FROZEN_FULL_LIST.name} "
+          f"({len(proofs[0].commitments) + len(proofs[0].t_c)} commitments); verify [True], "
+          f"wrong seed [False] (first prove {t1 - t0:.3f} s incl. the circuit, verify x2 "
+          f"{t2 - t1:.3f} s)", flush=True)
+
+
+def full_list_b16(dev, counts_l4: dict, s_per_op_l4: list[float]):
+    """Phase 8b.  Returns (launch counts of the counted round trip, s/op of
+    the timed trips, the verifier's dynamic-MSM leaf items)."""
+    from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch, verify_batch
+    from dusk_blindbidproof_tpu_torch.ops import fused, limb
+    from dusk_blindbidproof_tpu_torch.utils import profiling
+
+    B = FULL_LIST_BATCH
+    reqs = requests(B, full_list_inputs)
+
+    def round_trip():
+        proofs = prove_batch(reqs, rng=np.random.default_rng(7), device=dev)
+        oks = verify_batch(verify_requests(reqs, proofs), device=dev)
+        torch.cuda.synchronize()
+        return oks, proofs
+
+    t0 = time.perf_counter()
+    oks, proofs = round_trip()
+    warm = time.perf_counter() - t0
+    if oks != [True] * B:
+        fail(f"B={B} at {FULL_LIST} bids: the warm-up round trip gave {oks}")
+    vreqs = verify_requests(reqs, proofs)
+    vreqs[FULL_LIST_BAD].seed += 1
+    got = verify_batch(vreqs, device=dev)
+    if got != [i != FULL_LIST_BAD for i in range(B)]:
+        fail(f"B={B} at {FULL_LIST} bids: a wrong seed at place {FULL_LIST_BAD} gave {got}")
+    s_per_op = []
+    for _ in range(TIMED_TRIPS):
+        t0 = time.perf_counter()
+        oks, _ = round_trip()
+        s_per_op.append((time.perf_counter() - t0) / B)
+        if oks != [True] * B:
+            fail(f"B={B} at {FULL_LIST} bids: a timed round trip gave {oks}")
+    print(f"full list B={B}: s/op over {TIMED_TRIPS} round trips: median {np.median(s_per_op)}, "
+          f"min {min(s_per_op)}, max {max(s_per_op)}, all {s_per_op} (warm-up {warm:.3f} s); "
+          f"phase 4 at 4 bids: median {np.median(s_per_op_l4)}, all {s_per_op_l4}; every proof "
+          f"verifies, a wrong seed rejected at place {FULL_LIST_BAD} only", flush=True)
+
+    profiling.enable()
+    profiling.reset()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    with LeafScans() as scans:
+        proofs = prove_batch(reqs, rng=np.random.default_rng(7), device=dev)
+        torch.cuda.synchronize()
+        prove_counts = fused.launch_counts()
+        oks = verify_batch(verify_requests(reqs, proofs), device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    profiling.enable(False)
+    if oks != [True] * B:
+        fail(f"B={B} at {FULL_LIST} bids: the counted round trip gave {oks}")
+    print(profiling.report(), flush=True)
+    print(f"full list B={B}: counted round trip {wall:.4f} s wall; launches {counts}; of them "
+          f"the verifier's {({k: counts[k] - prove_counts[k] for k in counts})}; phase 4 "
+          f"at 4 bids {counts_l4}", flush=True)
+    print(f"full list B={B}: bucket MSMs of the round trip (affine-Niels items, shape, "
+          f"add_scan launches): {scans.calls}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched at {FULL_LIST} bids: {missing}")
+    dynamic = (B, FULL_LIST_POINTS * WINDOWS, 4, limb.NLIMBS)
+    if not any(not niels and shape == dynamic and n >= 1 for niels, shape, n in scans.calls):
+        fail(f"the verifier's dynamic MSM over {dynamic} did not launch add_scan: {scans.calls}")
+    over = {k: (counts[k], counts_l4[k]) for k in LAUNCH_LIMITS if counts[k] > counts_l4[k]}
+    if over:
+        fail(f"one-step launches above phase 4's at {FULL_LIST} bids: {over}")
+
+    rows, wall = profiled(round_trip)
+    busy = sum(r["device_ms"] for r in rows)
+    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
+    print(f"full list B={B}: profiled round trip {wall:.4f} s wall, device busy {busy:.1f} ms, "
+          f"share {busy / (wall * 1e3)}; the port's own kernels "
+          f"{sum(r['device_ms'] for r in own):.3f} ms; the 12 largest, then every own kernel:",
+          flush=True)
+    for r in rows[:12] + own:
+        print(f"  {r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}", flush=True)
+    return counts, s_per_op, scans.leaf
+
+
+def check_full_list_kernels(dev, leaf: torch.Tensor, counts: dict) -> list[dict]:
+    """Phase 8c: the kernels at 8b's shapes.  Returns every case's row."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb, msm
+
+    checks = KernelChecks(dev)
+    nl, R = limb.NLIMBS, BLOCK_R
+
+    # add_scan as the leaf of the verifier's dynamic MSM, on its own items
+    special = leaf.clone()
+    flat = special.view(-1, special.shape[-3], 4, nl)
+    flat[0, 0] = 8192
+    flat[0, 1] = edwards.identity(device=dev)
+    flat[-1, 33:40] = edwards.identity(device=dev)
+    for label, items in (("the verifier's leaf items", leaf),
+                         ("the same with all-8192 and identity rows", special)):
+        x = msm._blocked(items)[0]
+        n = x.numel() // (4 * nl)
+        checks.case("add_scan", f"dynamic MSM leaf, {label}, {n} items in {n // R} blocks of {R}",
+                    lambda: fused.add_scan(x, R), lambda: fused.add_scan_ref(x, R), limb.FP,
+                    (n * (SCAN_ITEM_ROWS["add_scan"] + 4) + n // R * 4) * FE_BYTES,
+                    n * SCAN_FIELD_MULS["add_scan"] * OPS_PER_FIELD_MUL, 20)
+    del special, flat
+
+    npts = leaf.shape[0] * FULL_LIST_POINTS
+    p = checks.rand((npts, 4, nl))
+    p[0] = 8192
+    p[1] = edwards.identity(device=dev)
+    doubles = (WINDOWS - 1) * WINDOW_STEPS
+    checks.case("double_chain",
+                f"verifier, {npts} points x {WINDOWS} windows x {WINDOW_STEPS} steps",
+                lambda: fused.double_chain(p, WINDOWS, WINDOW_STEPS),
+                lambda: fused.double_chain_ref(p, WINDOWS, WINDOW_STEPS), limb.FP,
+                npts * (1 + WINDOWS) * 4 * FE_BYTES,
+                npts * (doubles * OPS_PER_DOUBLE_XYZ + (WINDOWS - 1) * OPS_PER_FIELD_MUL), 10)
+
+    x = checks.rand((npts, nl))
+    x[0], x[1] = 8192, 0
+    x[2] = torch.from_numpy(limb.int_to_limbs(1)).to(dev)
+    for k in SQR_CHAIN_K:
+        checks.case("sqr_chain", f"decompression, {npts} rows, k = {k}",
+                    lambda: fused.sqr_chain(limb.FP, x, k),
+                    lambda: fused.sqr_chain_ref(limb.FP, x, k), limb.FP,
+                    npts * 2 * FE_BYTES, npts * k * OPS_PER_FIELD_SQR, 50)
+
+    rows = (leaf.shape[0], FULL_LIST_POINTS, nl)
+    a, b = checks.rand(rows), checks.rand(rows)
+    a[0, 0], b[0, 0] = 8192, 8192
+    a[0, 1], b[0, 2] = 0, 0
+    checks.case("mul_rows_fp", f"decompression, {npts} rows",
+                lambda: fused.mul_rows(limb.FP, a, b), lambda: fused.mul_rows_ref(limb.FP, a, b),
+                limb.FP, npts * 3 * FE_BYTES, npts * OPS_PER_FIELD_MUL, 50, 3)
+    return [dict(row, launches=counts[row["name"]]) for row in checks.rows]
+
+
+def full_list_server(dev, s_per_op_direct: float) -> dict:
+    """Phase 8d: the server at 202 bids, then with both list lengths at once.
+    Returns the launch counts of the phase."""
+    from dusk_blindbidproof_tpu_torch.models import blindbid
+    from dusk_blindbidproof_tpu_torch.ops import fused
+
+    client = load_client()
+    tmp = socket_dir()
+    path = os.path.join(tmp, "bb.sock")
+    # as in a fresh daemon: start() builds the 4-bid circuit, a 202-bid
+    # request builds its own
+    blindbid.blindbid_circuit.cache_clear()
+    fused.reset_launch_counts()
+
+    def mixed(i: int) -> dict:
+        return full_list_inputs(i) if i % 2 else request_inputs(i)
+
+    try:
+        with LiveServer(path, dev) as live:
+            latency = []
+            with connect(path) as s:
+                for i in range(2):
+                    t0 = time.perf_counter()
+                    client.prove_verify(s, *client.build_prove_body(**full_list_inputs(i)))
+                    latency.append(time.perf_counter() - t0)
+            flushed = live.take_flushed()
+            print(f"server, {FULL_LIST} bids: the first request's prove + verify took "
+                  f"{latency[0]:.3f} s (its circuit built inside it), the second "
+                  f"{latency[1]:.3f} s; flushed {flushed}", flush=True)
+            n, half = FULL_LIST_CLIENTS, FULL_LIST_CLIENTS // 2
+            for label, inputs, want in (
+                    (f"{n} at {FULL_LIST} bids", full_list_inputs, {FULL_LIST: n}),
+                    (f"{half} at 4 bids and {half} at {FULL_LIST} bids", mixed,
+                     {4: half, FULL_LIST: half})):
+                before = fused.launch_counts()
+                wall = clients_at_once(client, path, n, inputs)
+                flushed = live.take_flushed()
+                after = fused.launch_counts()
+                for kind in ("prove", "verify"):
+                    got: dict[int, int] = {}
+                    for k, size, lens in flushed:
+                        if k != kind:
+                            continue
+                        if len(lens) != 1 or size > MAX_BATCH:
+                            fail(f"{label}: a {kind} batch of {size} with list lengths {lens}")
+                        got[lens[0]] = got.get(lens[0], 0) + size
+                    if got != want:
+                        fail(f"{label}: {kind} batches by list length {got}, expected {want}")
+                print(f"server: {label} at once all verify: flushed {flushed}, wall {wall:.4f} s, "
+                      f"{wall / n} s/op (direct B={FULL_LIST_BATCH} at {FULL_LIST} bids: "
+                      f"{s_per_op_direct}); "
+                      f"launches { {k: after[k] - before[k] for k in after} }", flush=True)
+        if live.server.fault is not None:
+            fail(f"the server kept a device fault: {live.server.fault!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = fused.launch_counts()
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched behind the server at {FULL_LIST} bids: {missing}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1468,6 +1773,12 @@ def main() -> None:
     large_counts = chain_large(dev)
     torch.cuda.empty_cache()
     large = check_large_kernels(dev, large_counts)
+    torch.cuda.empty_cache()
+    full_list_b1(dev)
+    full_counts, full_s_per_op, leaf = full_list_b16(dev, counts, s_per_op)
+    full_shapes = check_full_list_kernels(dev, leaf, full_counts)
+    del leaf
+    full_server_counts = full_list_server(dev, float(np.median(full_s_per_op)))
 
     line = []
     for name, r in kernels.items():
@@ -1475,13 +1786,17 @@ def main() -> None:
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": counts[name], "launches_server": server_counts[name],
             "launches_mesh": mesh_counts[name], "launches_large": large_counts[name],
+            "launches_full_list": full_counts[name],
+            "launches_full_list_server": full_server_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "large_shapes": large.get(name, []),
+            "full_list_shapes": [row for row in full_shapes if row["name"] == name],
         })
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s; s/op at B=16: median "
-          f"{np.median(s_per_op)} over {TIMED_TRIPS} round trips")
+          f"{np.median(s_per_op)} over {TIMED_TRIPS} round trips at 4 bids, "
+          f"{np.median(full_s_per_op)} at {FULL_LIST} bids")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

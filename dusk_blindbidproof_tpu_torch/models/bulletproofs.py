@@ -533,11 +533,12 @@ class Prover(_MeshRows):
                 self._ints([blindings[i][j] % L for i in range(B) for j in range(m)], (B, m)),
             ))
         out = []
-        for i, t in enumerate(self.transcripts):
-            row = _compress_host(comp[i])
-            for c in row:
-                append_point(t, b"V", c)
-            out.append(row)
+        with span("prove.commit_V_host"):  # compression and transcript, B x m points
+            for i, t in enumerate(self.transcripts):
+                row = _compress_host(comp[i])
+                for c in row:
+                    append_point(t, b"V", c)
+                out.append(row)
         return self._gather(out)
 
     def prove(self, circuit: CompiledCircuit, witness: ProverWitness,
@@ -839,9 +840,10 @@ class Verifier(_MeshRows):
 
     def commit_batch(self, commitments: list[list[bytes]]) -> None:
         """The whole batch's commitments; this process's rows are appended."""
-        for t, row in zip(self.transcripts, commitments[self.rows]):
-            for c in row:
-                append_point(t, b"V", c)
+        with span("verify.commit_V"):
+            for t, row in zip(self.transcripts, commitments[self.rows]):
+                for c in row:
+                    append_point(t, b"V", c)
 
     def _ints(self, vals, shape=None) -> torch.Tensor:
         return _dev(limb.ints_to_limbs_fast(vals, shape), self.device)

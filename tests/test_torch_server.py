@@ -203,7 +203,7 @@ def test_blindbid_proof_envelope_round_trip():
     assert srv.decode_proof(srv.encode_proof(proof)) == proof
 
 
-def _random_proof(rng, cls_r1cs, cls_proof, rounds):
+def _random_proof(rng, cls_r1cs, cls_proof, rounds, n_toggles=4):
     pt = lambda: rng.bytes(32)  # noqa: E731
     sc = lambda: int.from_bytes(rng.bytes(32), "little") % L  # noqa: E731
     fields = dict(
@@ -213,7 +213,7 @@ def _random_proof(rng, cls_r1cs, cls_proof, rounds):
         ipp_L=[pt() for _ in range(rounds)], ipp_R=[pt() for _ in range(rounds)],
         ipp_a=sc(), ipp_b=sc(),
     )
-    head = [pt() for _ in range(8)]
+    head = [pt() for _ in range(4 + n_toggles)]
     return cls_proof(r1cs=cls_r1cs(**fields), commitments=head[:4], t_c=head[4:])
 
 
@@ -315,34 +315,46 @@ def test_parse_verify_rejects_non_canonical_scalar(index, name):
         srv.parse_verify_request(_verify_body(_dummy_proof(), scalars=scalars))
 
 
-def _seeded_prove_fields(seed):
+def _seeded_prove_fields(seed, list_len=None):
+    """Seven canonical scalars, a bid list (2 + seed entries unless
+    `list_len` is given) and a toggle place inside it."""
     rng = np.random.default_rng(seed)
     scalars = [int.from_bytes(rng.bytes(32), "little") % L for _ in range(7)]
+    n = 2 + seed if list_len is None else list_len
     # entries over the whole 256-bit range: bit 255 set and values >= l occur
-    pub_list = [int.from_bytes(rng.bytes(32), "little") for _ in range(2 + seed)]
-    return scalars, pub_list, int(rng.integers(0, 2 + seed))
+    pub_list = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+    return scalars, pub_list, int(rng.integers(0, n))
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_parse_prove_equals_the_jax_package(seed):
-    scalars, pub_list, toggle = _seeded_prove_fields(seed)
+# (seed, list length): 2 + seed entries, then the usual list of 4 and the
+# longest list the generators hold (202 bids: n1 = 1442 + 3 x 202 = 2048)
+PARSE_CASES = ([pytest.param(s, None, id=str(s)) for s in SEEDS]
+               + [pytest.param(s, n, id=f"{s}-L{n}") for n in (4, 202) for s in SEEDS])
+
+
+@pytest.mark.parametrize("seed, list_len", PARSE_CASES)
+def test_parse_prove_equals_the_jax_package(seed, list_len):
+    scalars, pub_list, toggle = _seeded_prove_fields(seed, list_len)
     body = _prove_body(*scalars, pub_list=pub_list, toggle=toggle)
     ours, theirs = srv.parse_prove_request(body), jsrv.parse_prove_request(body)
     assert vars(ours) == vars(theirs)
     assert [ours.d, ours.k, ours.y, ours.y_inv, ours.q, ours.z_img, ours.seed] == scalars
     assert ours.pub_list == [v & ((1 << 255) - 1) for v in pub_list]
+    assert len(ours.pub_list) == len(pub_list)
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_parse_verify_equals_the_jax_package(seed):
+@pytest.mark.parametrize("seed, list_len", PARSE_CASES)
+def test_parse_verify_equals_the_jax_package(seed, list_len):
     rng = np.random.default_rng(100 + seed)
-    proof = _random_proof(rng, R1CSProof, BlindBidProof, 11)
-    scalars, pub_list, _ = _seeded_prove_fields(seed)
+    proof = _random_proof(rng, R1CSProof, BlindBidProof, 11,
+                          n_toggles=4 if list_len is None else list_len)
+    scalars, pub_list, _ = _seeded_prove_fields(seed, list_len)
     body = _verify_body(proof, scalars=scalars[:3], pub_list=pub_list)
     ours, theirs = srv.parse_verify_request(body), jsrv.parse_verify_request(body)
     assert (ours.score, ours.z_img, ours.seed) == (theirs.score, theirs.z_img, theirs.seed)
     assert ours.pub_list == theirs.pub_list
     assert srv.encode_proof(ours.proof) == jsrv.encode_proof(theirs.proof)
+    assert len(ours.proof.t_c) == len(proof.t_c)
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +568,49 @@ def test_batching_keys_keep_shapes_apart(passes):
         ("prove", ["a", "d"]), ("prove", ["b"]), ("verify", ["c", "f"]), ("verify", ["e"])]
     assert results[2] is True and results[0] == _dummy_proof(tag=0)
     assert results[3] == _dummy_proof(tag=1)
+
+
+def test_batching_keeps_list_lengths_apart(passes):
+    """202-bid and 4-bid requests that arrive together, parsed and submitted
+    by `_dispatch` as the daemon does: each list length flushes as a batch of
+    its own under its own key, and every answer goes to its own request."""
+    service = srv.BatchingService(window_ms=200.0, device="cpu")
+    server = srv.BlindBidServer("/tmp/unused.sock", service=service)
+    keys = []
+    submit = service.submit
+
+    async def recording_submit(kind, shape_key, item):
+        keys.append((kind, shape_key))
+        return await submit(kind, shape_key, item)
+
+    service.submit = recording_submit
+    lists = {202: [1000 + i for i in range(202)], 4: [1, 2, 3, 4]}
+    order = [202, 4, 202, 4, 202]
+    requests = [b"\x01" + _prove_body(seed=11 + i, pub_list=lists[n], toggle=i % n)
+                for i, n in enumerate(order)]
+    requests += [b"\x02" + _verify_body(_dummy_proof(n_toggles=n), pub_list=lists[n])
+                 for n in order]
+
+    async def run():
+        return await asyncio.gather(*(server._dispatch(r) for r in requests))
+
+    service.start()
+    try:
+        answers = asyncio.run(asyncio.wait_for(run(), timeout=60))
+    finally:
+        service.close()
+    assert keys == [("prove", n) for n in order] + [("verify", (n, 11)) for n in order]
+    batches = sorted((kind, len(items[0].pub_list), [r.seed for r in items])
+                     for kind, items, _, _ in passes)
+    assert batches == [("prove", 4, [12, 14]), ("prove", 202, [11, 13, 15]),
+                       ("verify", 4, [300, 300]), ("verify", 202, [300, 300, 300])]
+    frames = [TlvReader(a).read_frame() for a in answers]
+    # a prove answer is the stub's proof for its place in its own batch
+    place = {11: 0, 13: 1, 15: 2, 12: 0, 14: 1}
+    assert [srv.decode_proof(f) for f in frames[:5]] == [
+        _dummy_proof(tag=place[11 + i]) for i in range(5)]
+    assert frames[5:] == [b"\x01"] * 5
+    assert server.fault is None
 
 
 def test_batching_exception_reaches_every_waiter(passes):
