@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero:
      the kernels from dusk_blindbidproof_tpu_torch/csrc and ptxas's
      register and spill lines are printed and checked for every kernel;
   2. kernels against their plain versions at the main path's shapes: K1 mod p
-     on 16 x 41 rows first (its shape on the main path), then both moduli on
-     16 x 2048 rows and with an operand that is not 16-byte aligned; the squaring chain on 656 rows for
+     on 16 x 38 rows first (its shape on the main path: the verifier's 38
+     dynamic points a proof), then both moduli on 16 x 2048 rows and with an
+     operand that is not 16-byte aligned; the squaring chain on 608 rows for
      k = 2, 50, 100; K3 on one bucket-scan step of 16 x 2564 points; K4 on
-     16 points (the Horner step), 16 x 41 and 16 x 2564; the doubling chain
-     on 656 and 4098 points x 20 windows x 13 steps; the 32-step scans
+     16 points (the Horner step), 16 x 38 and 16 x 2564; the doubling chain
+     on 608 and 4098 points x 20 windows x 13 steps; the 32-step scans
      madd_scan on 16 x 82040 and 16 x 2 x 40980 Niels items, add_scan on
      32 x 1281 and add_total on 32 x 8191 points, and madd_scan with R = 2 on
      16 x 2564 blocks; random, all-8192, zero and identity inputs, compared
@@ -33,10 +34,12 @@ Phases, in order; any failure exits non-zero:
         session (a proof the JAX package made) must give the recorded
         response bytes; the recorded prove request a proof that verifies, and
         0x00 with a changed seed; a bad opcode and a prove body cut short give
-        0xff and the daemon answers on; five hostile requests (HOSTILE: verify
+        0xff and the daemon answers on; seven hostile requests (HOSTILE: verify
         and prove with 203 bids, over the generator capacity; verify with 0
-        bids, with 10 IPA rounds at 4 bids, with an odd A_I1) each answer
-        exactly 0xff, launch no kernel and leave no fault; then, on the same
+        bids, with 10 IPA rounds at 4 bids, with an odd A_I1; prove and verify
+        with 20,000 bids, refused from the list's length before any synthesis)
+        each answer exactly 0xff, launch no kernel and leave no fault, each
+        answer's time printed beside the card; then, on the same
         server, 16, 5, 11 and 17 connections at once, each proving and then
         verifying its own proof, with the batch sizes the service flushed and
         the wall time an operation printed.
@@ -46,8 +49,8 @@ Phases, in order; any failure exits non-zero:
         a device fault or an exception in the server's thread fails the run;
      b. the entry point, `python -m dusk_blindbidproof_tpu_torch.server` with
         no --device, as a subprocess: time to listening, one prove + verify,
-        the over-capacity verify request (0xff), 16 at once, alive before it
-        is terminated;
+        the 203-bid verify and the 20,000-bid prove request (each 0xff, its
+        time printed), 16 at once, alive before it is terminated;
      c. the scripts, as subprocesses started together, each of which must exit
         0: scripts/test-uds-torch.sh (server + client over a socket),
         scripts/oracle_compare_torch.py 8 and scripts/record_session_torch.py
@@ -215,7 +218,11 @@ SCAN_CASES = [
 ]
 SCAN_WIDTH = 2564  # bucket-scan step width: 82040 items / 32 steps
 ROWS = (16, 2048)  # K1: 16 proofs x n = 2048
-VERIFY_POINTS = 16 * 41  # dynamic points of 16 proofs: decompressed, then window-scaled
+# dynamic points of one proof in the verifier at list length 4: the 4 + 4
+# commitments, T_1,3,4,5,6, A_I1 A_O1 S1 and 11 rounds of L_j R_j (phase 2's
+# are the identity and left out); 16 proofs' are decompressed, then window-scaled
+VERIFY_POINTS_A_PROOF = (4 + 4) + 5 + 3 + 2 * 11
+VERIFY_POINTS = 16 * VERIFY_POINTS_A_PROOF
 TABLE_POINTS = 2 * 2048 + 2  # generators of the window tables at capacity 2048
 WINDOWS, WINDOW_STEPS = 20, 13  # ops/msm.py WINDOWS, LIMB_BITS
 SQR_CHAIN_K = (100, 50, 2)  # runs of squarings in x^(2^252 - 3); the longest goes in the kernels line
@@ -229,10 +236,14 @@ TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
 CLIENTS_AT_ONCE = (16, 5, 11, 17)
 MAX_BATCH = 16
 # hostile requests: 203 bids make n1 = 1442 + 3 x 203 = 2051 gates, so n_pad =
-# 4096 > GENS_CAPACITY = 2048 (a verify proof of it has 12 IPA rounds)
+# 4096 > GENS_CAPACITY = 2048 (a verify proof of it has 12 IPA rounds); 20,000
+# bids make n_pad = 65536 (16 rounds), a circuit that takes minutes to
+# synthesize on the host, so it must be refused from the list's length
 OVER_CAPACITY_BIDS = 203
+LONG_LIST_BIDS = 20000
 HOSTILE = ("verify, 203 bids", "prove, 203 bids", "verify, 0 bids",
-           "verify, 10 IPA rounds at 4 bids", "verify, odd A_I1")
+           "verify, 10 IPA rounds at 4 bids", "verify, odd A_I1",
+           "prove, 20000 bids", "verify, 20000 bids")
 PARSE_REPS = 100  # parses timed for the host's cost of one request
 SERVER_START_TIMEOUT = 300  # s, for the socket of a starting server to appear
 SCRIPT_TIMEOUT = 420  # s, for each script of phase 5c
@@ -422,7 +433,7 @@ def check_rows(checks) -> None:
 
     # first the shape at which the main path launches K1 mod p: the products
     # of the verifier's decompression (the kernels line keeps a kernel's first case)
-    a, b = operands((16, 41))
+    a, b = operands((16, VERIFY_POINTS_A_PROOF))
     product(limb.FP, "decompression", a, b)
     for ctx in (limb.FP, limb.FL):
         a, b = operands(ROWS)
@@ -812,24 +823,30 @@ def hostile_requests(client) -> dict[str, bytes]:
         pub = dict(q=7, z_img=8, seed=9, pub_list=[1000 + i for i in range(bids)])
         return bytes([client.OP_VERIFY]) + client.build_verify_body(srv.encode_proof(proof), pub)
 
-    inputs = request_inputs(0)
-    prove_body, _ = client.build_prove_body(
-        d=inputs["d"], k=inputs["k"], seed=inputs["seed"],
-        extra=[1000 + i for i in range(OVER_CAPACITY_BIDS - 1)], pos=0)
+    def prove(bids: int) -> bytes:
+        inputs = request_inputs(0)
+        body, _ = client.build_prove_body(
+            d=inputs["d"], k=inputs["k"], seed=inputs["seed"],
+            extra=[1000 + i for i in range(bids - 1)], pos=0)
+        return bytes([client.OP_PROVE]) + body
+
     payloads = [
         verify(OVER_CAPACITY_BIDS, 12),
-        bytes([client.OP_PROVE]) + prove_body,
+        prove(OVER_CAPACITY_BIDS),
         verify(0, 11),
         verify(4, 10),
         verify(4, 11, a_i1=bytes([base[0] | 1]) + base[1:]),
+        prove(LONG_LIST_BIDS),
+        verify(LONG_LIST_BIDS, 16),
     ]
     return dict(zip(HOSTILE, payloads))
 
 
-def hostile_step(client, live, path: str) -> None:
+def hostile_step(client, live, path: str, card: str) -> None:
     """Phase 5a's hostile requests on one connection: each must answer
     exactly the error frame with no kernel launched in between (the counts
-    read before and after each) and leave the server without a fault."""
+    read before and after each) and leave the server without a fault.  The
+    wall time of each answer is printed beside the card."""
     from dusk_blindbidproof_tpu_torch.ops import fused
 
     report = []
@@ -847,12 +864,12 @@ def hostile_step(client, live, path: str) -> None:
                 fail(f"hostile request '{name}' launched kernels: {launched}")
             if live.server.fault is not None:
                 fail(f"hostile request '{name}' left a fault: {live.server.fault!r}")
-            report.append(f"{name} {ms:.1f} ms")
-    print(f"server: hostile requests each answered 0xff with 0 launches, no fault: "
-          f"{'; '.join(report)}; flushed {live.take_flushed()}", flush=True)
+            report.append(f"{name} {ms} ms")
+    print(f"server: hostile requests each answered 0xff with 0 launches, no fault "
+          f"({card}): {'; '.join(report)}; flushed {live.take_flushed()}", flush=True)
 
 
-def server_in_process(dev, s_per_op_direct: float) -> dict:
+def server_in_process(dev, s_per_op_direct: float, card: str) -> dict:
     from dusk_blindbidproof_tpu_torch import server as srv
     from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch
     from dusk_blindbidproof_tpu_torch.ops import fused
@@ -910,7 +927,7 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
                   f"verify 0x01, changed seed 0x00; bad opcode and short body 0xff, then 0x01; "
                   f"flushed {live.take_flushed()}", flush=True)
             # 4. hostile requests, then the same server goes on
-            hostile_step(client, live, path)
+            hostile_step(client, live, path, card)
             # 5. concurrent clients
             sizes_seen, walls = [], {}
             before = fused.launch_counts()
@@ -931,9 +948,9 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
                 fail(f"no batch that is not a power of two was flushed: {sizes_seen}")
         if live.server.fault is not None:
             fail(f"the server kept a device fault: {live.server.fault!r}")
-        print(f"hostile: {len(HOSTILE)} requests answered 0xff, 0 launches for the "
-              f"over-capacity pair (and the other three), server alive; then "
-              f"{MAX_BATCH} at once verified in {walls[MAX_BATCH]:.4f} s", flush=True)
+        print(f"hostile: {len(HOSTILE)} requests answered 0xff with 0 launches, server "
+              f"alive; then {MAX_BATCH} at once verified in {walls[MAX_BATCH]:.4f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = fused.launch_counts()
@@ -944,7 +961,7 @@ def server_in_process(dev, s_per_op_direct: float) -> dict:
     return counts
 
 
-def server_entry_point() -> None:
+def server_entry_point(card: str) -> None:
     """`python -m dusk_blindbidproof_tpu_torch.server` with no --device."""
     client = load_client()
     tmp = socket_dir()
@@ -962,9 +979,14 @@ def server_entry_point() -> None:
                 listening = time.perf_counter() - t0
                 client.prove_verify(s, *client.build_prove_body(**request_inputs(0)))
                 answered = time.perf_counter() - t0
-                over = client.send_frame(s, hostile_requests(client)[HOSTILE[0]])
-                if over != client.ERROR_FRAME:
-                    fail(f"the server process answered '{HOSTILE[0]}' with {over[:16]!r}")
+                hostile = hostile_requests(client)
+                refusal_ms = {}
+                for name in (HOSTILE[0], "prove, 20000 bids"):
+                    t1 = time.perf_counter()
+                    over = client.send_frame(s, hostile[name])
+                    refusal_ms[name] = (time.perf_counter() - t1) * 1e3
+                    if over != client.ERROR_FRAME:
+                        fail(f"the server process answered '{name}' with {over[:16]!r}")
             # the same 16 at once as in phase 5a, the client now in another
             # process than the server's event loop
             wall = clients_at_once(client, path, MAX_BATCH)
@@ -984,9 +1006,10 @@ def server_entry_point() -> None:
             fail(f"the terminated server process exited with {rc}")
         print(f"server: python -m dusk_blindbidproof_tpu_torch.server listened after "
               f"{listening:.2f} s (kernel library already built), prove + verify answered "
-              f"at {answered:.2f} s, '{HOSTILE[0]}' 0xff, then {MAX_BATCH} at once all "
-              f"verify in {wall:.4f} s, {wall / MAX_BATCH} s/op; alive until terminated",
-              flush=True)
+              f"at {answered:.2f} s, then 0xff to "
+              f"{'; '.join(f'{k!r} in {v} ms' for k, v in refusal_ms.items())} ({card}), "
+              f"then {MAX_BATCH} at once all verify in {wall:.4f} s, {wall / MAX_BATCH} "
+              f"s/op; alive until terminated", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1764,8 +1787,8 @@ def main() -> None:
     kernels = check_kernels(dev)
     main_path_b1(dev)
     counts, s_per_op, digests = main_path_b16(dev)
-    server_counts = server_in_process(dev, float(np.median(s_per_op)))
-    server_entry_point()
+    server_counts = server_in_process(dev, float(np.median(s_per_op)), card)
+    server_entry_point(card)
     scripts_on_card()
     mesh_counts = mesh_phase(digests, float(np.median(s_per_op)))
     torch.cuda.empty_cache()

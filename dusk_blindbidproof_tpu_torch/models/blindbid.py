@@ -11,10 +11,11 @@ Both take `device=` (default CUDA; see models.bulletproofs.resolve_device)
 or `mesh=` (parallel.mesh: every rank passes the same full batch, proves or
 verifies the rows of its bids index and returns the whole batch's results,
 byte-identical to mesh=None).  The circuit shape is cached per list length
-and device, and is made first: a list too long for the generator capacity
-is refused with ProofError before any table is built or kernel launched.
-The witness is generated by a host routine mirroring the gadget's gate
-order.
+and device, and is made first.  Before it, the list is held to the generator
+capacity from its length alone (`check_list_len`): an empty list is refused
+with ValueError and one too long with ProofError, before any synthesis, table
+or kernel launch.  The witness is generated by a host routine mirroring the
+gadget's gate order.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from .bulletproofs import (
     resolve_device,
 )
 from .constants import GENS_CAPACITY, TRANSCRIPT_LABEL, mimc_constants
-from .gadgets import mimc_hash, proof_gadget
+from .gadgets import blindbid_n_pad, mimc_hash, proof_gadget
 from .proof_struct import BlindBidProof, R1CSProof
 from .r1cs import LC, VerifierCS
 
@@ -168,12 +169,21 @@ def _publics_limbs(reqs_publics: list[list[int]]) -> np.ndarray:
     )
 
 
+def check_list_len(list_len: int) -> None:
+    """Refuse a bid list from its length alone: ValueError if it is empty,
+    ProofError if its circuit's n_pad exceeds the generator capacity.  It
+    synthesizes nothing, so a list of any length is refused at once."""
+    check_capacity(blindbid_n_pad(list_len), GENS_CAPACITY)
+
+
 def _checked_circuit(list_len: int, device, mesh) -> CompiledCircuit:
-    """The circuit of `list_len` bids on the device of the pass, refused with
-    ProofError if it exceeds the generator capacity: made before the prover
-    or verifier, so a refused request builds no table and launches nothing."""
+    """The circuit of `list_len` bids on the device of the pass, made only
+    after `check_list_len` and before the prover or verifier, so a refused
+    request synthesizes nothing, builds no table and launches nothing.  The
+    synthesized circuit is held to the capacity again."""
+    check_list_len(list_len)
     circuit = blindbid_circuit(list_len, device if mesh is None else mesh.device)
-    check_capacity(circuit, GENS_CAPACITY)
+    check_capacity(circuit.n_pad, GENS_CAPACITY)
     return circuit
 
 
@@ -195,11 +205,11 @@ def prove_batch(
     list_len = len(requests[0].pub_list)
     if any(len(r.pub_list) != list_len for r in requests):
         raise ValueError("batch must share list length")
+    circuit = _checked_circuit(list_len, device, mesh)
     for r in requests:
         if not 0 <= r.toggle < list_len:
             raise ValueError("toggle out of range")
     rng = rng or np.random.default_rng()
-    circuit = _checked_circuit(list_len, device, mesh)
 
     transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
     prover = Prover(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)

@@ -255,12 +255,13 @@ class GeneratorTables:
     niels: torch.Tensor
 
 
-def check_capacity(circuit: CompiledCircuit, cap: int) -> None:
-    """Refuse a circuit larger than the generator capacity: an error of the
-    request (ProofError), raised before any table or tensor work."""
-    if circuit.n_pad > cap:
+def check_capacity(n_pad: int, cap: int) -> None:
+    """Refuse a circuit of `n_pad` padded gates larger than the generator
+    capacity: an error of the request (ProofError), raised before any table
+    or tensor work."""
+    if n_pad > cap:
         raise ProofError(
-            f"circuit exceeds generator capacity: n_pad {circuit.n_pad} > cap {cap}"
+            f"circuit exceeds generator capacity: n_pad {n_pad} > cap {cap}"
         )
 
 
@@ -547,7 +548,7 @@ class Prover(_MeshRows):
         rows, of which a rank of a mesh reads its own alone.  A circuit larger
         than the capacity raises ProofError before any work (on every rank of
         a mesh alike, with no collective)."""
-        check_capacity(circuit, self.cap)
+        check_capacity(circuit.n_pad, self.cap)
         if self.mesh is None:
             return self._prove_rows(circuit, witness, seed)
         local = []
@@ -854,7 +855,7 @@ class Verifier(_MeshRows):
         canonical public-input limbs.  A malformed proof raises ProofError
         for the whole batch, on every rank of a mesh; so does a circuit
         larger than the capacity, before any work."""
-        check_capacity(circuit, self.cap)
+        check_capacity(circuit.n_pad, self.cap)
         if self.mesh is None:
             return self._verify_rows(circuit, proofs, commitments, publics)
         local = []

@@ -22,6 +22,21 @@ from .r1cs import LC, ConstraintSystem, Variable
 MIMC_ROUNDS = 90
 
 
+def blindbid_gates(list_len: int) -> int:
+    """n1 of the circuit of `list_len` bids, from the length alone: four
+    MiMC calls of four gates a round, the score gadget's two gates and three
+    gates a bid (booleanity and two membership gates), 1442 + 3L."""
+    if list_len < 1:
+        raise ValueError("empty bid list")
+    return 4 * 4 * MIMC_ROUNDS + 2 + 3 * list_len
+
+
+def blindbid_n_pad(list_len: int) -> int:
+    """The next power of two at or above `blindbid_gates(list_len)`: the
+    gate count CompiledCircuit.compile pads the circuit to."""
+    return 1 << (blindbid_gates(list_len) - 1).bit_length()
+
+
 def mimc_gadget(cs: ConstraintSystem, left, right, constants) -> LC:
     """x_{i+1} = (x_i + key + c_i)^7 via gates a^2, a^3, a^4, a^7; returns
     final x + key (gadgets.rs:37-68)."""

@@ -9,7 +9,11 @@ parse answers the error frame 0xff and the daemon carries on.
 
 Concurrency becomes the device's batch dimension: requests of one circuit
 shape that arrive within the batching window are proven or verified in one
-device pass, at whatever batch size arrived (1 to `max_batch`).
+device pass, at whatever batch size arrived (1 to `max_batch`).  A request
+whose bid list is empty or too long for the generator capacity is refused
+from its length as soon as it is parsed, on the event loop
+(`blindbid.check_list_len`): it never waits behind a pass on the device
+thread, nor holds that thread to synthesize its circuit.
 
 Device and start-up.  The device is resolved once, when the server starts:
 CUDA unless `--device` (or `device=`) names another.  On CUDA the kernels are
@@ -24,13 +28,14 @@ resolved device as its current device.
 Errors.  Every failure of a request answers the error frame and the daemon
 serves on, as the JAX server does: bad bytes, a bad opcode, a `BlindBidError`,
 a `ProofError` (a malformed proof, a bid list too long for the generator
-capacity), a `ValueError` or an `AssertionError`, and also a plain
-`RuntimeError` such as a torch shape check (a bug of the port, logged with
-its traceback).  Only the device's own faults stop the server, after their
-requests have had the error frame: `fused.KernelError` (the kernels failed to
-build, to initialise or to launch), `torch.AcceleratorError` (a CUDA error
-raised by torch) and `torch.OutOfMemoryError`.  Such a fault is kept in
-`BlindBidServer.fault`, and `serve_forever` raises it.
+capacity), a `ValueError` (an empty bid list among others) or an
+`AssertionError`, and also a plain `RuntimeError` such as a torch shape check
+(a bug of the port, logged with its traceback).  Only the device's own
+faults stop the server, after their requests have had the error frame:
+`fused.KernelError` (the kernels failed to build, to initialise or to
+launch), `torch.AcceleratorError` (a CUDA error raised by torch) and
+`torch.OutOfMemoryError`.  Such a fault is kept in `BlindBidServer.fault`,
+and `serve_forever` raises it.
 """
 
 from __future__ import annotations
@@ -284,10 +289,12 @@ class BlindBidServer:
             body = request[1:]
             if opcode == OP_PROVE:
                 req = parse_prove_request(body)
+                blindbid.check_list_len(len(req.pub_list))
                 proof = await self.service.submit("prove", len(req.pub_list), req)
                 w.write(encode_proof(proof))
             elif opcode == OP_VERIFY:
                 req = parse_verify_request(body)
+                blindbid.check_list_len(len(req.pub_list))
                 ok = await self.service.submit(
                     "verify", (len(req.pub_list), len(req.proof.r1cs.ipp_L)), req
                 )

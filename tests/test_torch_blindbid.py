@@ -7,6 +7,7 @@ package on the CPU with `prove_batch([req], rng=default_rng(42))`) is
 reproduced by both packages, and the port's verifier accepts it.
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +18,7 @@ from dusk_blindbidproof_tpu.models import blindbid as jb
 from dusk_blindbidproof_tpu_torch.models import blindbid as tb
 from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp
 from dusk_blindbidproof_tpu_torch.models.bulletproofs import CompiledCircuit
+from dusk_blindbidproof_tpu_torch.models import gadgets
 from dusk_blindbidproof_tpu_torch.models.constants import GENS_CAPACITY
 from dusk_blindbidproof_tpu_torch.models.proof_struct import BlindBidProof, R1CSProof
 from dusk_blindbidproof_tpu_torch.models.transcript_protocol import (
@@ -105,23 +107,84 @@ def no_tables(monkeypatch):
     monkeypatch.setattr(bp, "generator_tables", untouched)
 
 
+@pytest.fixture
+def no_synthesis(monkeypatch):
+    """Synthesizing a circuit fails the test."""
+    def untouched(list_len, device="cpu"):
+        raise AssertionError(f"the circuit of {list_len} bids synthesized for a refused request")
+
+    monkeypatch.setattr(tb, "blindbid_circuit", untouched)
+
+
 def test_circuit_over_capacity():
     c = tb.blindbid_circuit(OVER_CAPACITY_BIDS, CPU)
     assert (c.n1, c.n_pad) == (2051, 4096) and c.n_pad > GENS_CAPACITY
     assert tb.blindbid_circuit(OVER_CAPACITY_BIDS - 1, CPU).n_pad == GENS_CAPACITY
 
 
-def test_verify_batch_refuses_over_capacity(no_tables):
+def test_verify_batch_refuses_over_capacity(no_tables, no_synthesis):
     req = tb.VerifyRequest(proof=_basepoint_proof(OVER_CAPACITY_BIDS, 12), score=7,
                            z_img=8, seed=9, pub_list=list(range(OVER_CAPACITY_BIDS)))
     with pytest.raises(ProofError, match="n_pad 4096 > cap 2048"):
         tb.verify_batch([req, req], device="cpu")
 
 
-def test_prove_batch_refuses_over_capacity(no_tables):
+def test_prove_batch_refuses_over_capacity(no_tables, no_synthesis):
     reqs = [_req(tb, list_len=OVER_CAPACITY_BIDS, toggle=t) for t in (0, 202)]
     with pytest.raises(ProofError, match="n_pad 4096 > cap 2048"):
         tb.prove_batch(reqs, rng=np.random.default_rng(0), device="cpu")
+
+
+# list lengths whose circuits the suite synthesizes: the smallest, the main
+# path's, the last on the verifier's bit path and the first on its bucket
+# path (tests/test_torch_lists.py), the longest list the generators hold and
+# the shortest they do not
+@pytest.mark.parametrize("list_len", [1, 4, 17, 18, 202, OVER_CAPACITY_BIDS])
+def test_shape_from_the_length_matches_synthesis(list_len):
+    c = tb.blindbid_circuit(list_len, CPU)
+    assert gadgets.blindbid_gates(list_len) == c.n1 == 1442 + 3 * list_len
+    assert gadgets.blindbid_n_pad(list_len) == c.n_pad
+
+
+def test_shape_from_the_length_refuses_an_empty_list():
+    with pytest.raises(ValueError, match="empty bid list"):
+        gadgets.blindbid_gates(0)
+    with pytest.raises(ValueError, match="empty bid list"):
+        gadgets.blindbid_n_pad(0)
+
+
+# 20,000 bids: n1 = 1442 + 3 * 20000 = 61442 gates, n_pad = 65536; its circuit
+# would take minutes to synthesize
+LONG_LIST_BIDS = 20000
+
+
+def _call_entry(entry: str, n_bids: int) -> None:
+    """The entry point on a batch of two requests of `n_bids` bids."""
+    if entry == "verify":
+        req = tb.VerifyRequest(proof=_basepoint_proof(n_bids, 16), score=7, z_img=8, seed=9,
+                               pub_list=list(range(n_bids)))
+        tb.verify_batch([req, req], device="cpu")
+    else:
+        if n_bids:
+            reqs = [_req(tb, list_len=n_bids, toggle=t) for t in (0, n_bids - 1)]
+        else:
+            reqs = [dataclasses.replace(_req(tb), pub_list=[], toggle=0)] * 2
+        tb.prove_batch(reqs, rng=np.random.default_rng(0), device="cpu")
+
+
+@pytest.mark.parametrize("n_bids, error, match", [
+    (LONG_LIST_BIDS, ProofError, "n_pad 65536 > cap 2048"),
+    (0, ValueError, "empty bid list"),
+])
+@pytest.mark.parametrize("entry", ["prove", "verify"])
+def test_entry_points_refuse_from_the_length(no_tables, no_synthesis, entry, n_bids,
+                                             error, match):
+    """Refused from the list's length alone: no circuit is synthesized and no
+    table built, whatever the length."""
+    with pytest.raises(error, match=match):
+        _call_entry(entry, n_bids)
+    with pytest.raises(error, match=match):
+        tb.check_list_len(n_bids)
 
 
 @pytest.mark.slow

@@ -16,7 +16,10 @@ share of every case, and the tests read what the ranks returned:
     mesh=None's (proved in this process while the ranks run) and the JAX host
     oracle's for its place, on every rank; the honest batch verifies; a
     tampered proof or public turns its own place only; a malformed proof
-    raises ProofError on every rank.
+    raises ProofError on every rank;
+  * `prove_batch` / `verify_batch(mesh=)` at 20,000 bids: refused with
+    ProofError from the list's length on every rank, nothing synthesized,
+    and every rank goes on to the next collective.
 
 The slow cases run `prove_batch` / `verify_batch` at n = 2048 over bids 4
 against mesh=None, and `sharded_msm` against the JAX package's sharded MSM on
@@ -30,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from dusk_blindbidproof_tpu_torch.models import blindbid as tblindbid
 from dusk_blindbidproof_tpu_torch.models import r1cs as tr1cs
 from dusk_blindbidproof_tpu_torch.models.bulletproofs import (
     CompiledCircuit,
@@ -60,6 +64,9 @@ B = 5
 PROVER_LAYOUT = (2, 2)
 TAMPERED = {1: "t_x", 4: "public"}  # as tests/test_torch_batch.py's B = 5 pass
 MALFORMED_PLACE = 4  # on the second bids index: its ranks raise, the others must too
+# a bid list whose circuit (n_pad 65536) the generators cannot hold and whose
+# synthesis would take minutes: refused from its length on every rank
+LONG_LIST_BIDS = 20000
 
 
 def _artifact(r1cs):
@@ -176,6 +183,7 @@ def _rank_job(dev):
                                                             bucket_digits))
     pmesh.dryrun_multichip(meshes[(4, 1)])
     out["dryrun"] = True
+    out["long list"] = _long_list_refusals(meshes[(4, 1)])
 
     m = meshes[PROVER_LAYOUT]
     circuit = CompiledCircuit.compile(_artifact(tr1cs), dev)
@@ -198,6 +206,35 @@ def _rank_job(dev):
     except ProofError as exc:  # the raise is what the tests read
         out["malformed"] = str(exc)
     return out
+
+
+def _long_list_refusals(m) -> list[dict]:
+    """prove_batch and verify_batch(mesh=m) on two requests of LONG_LIST_BIDS
+    bids, synthesis made to raise; then one all_gather_object, which ends
+    only if every rank got past the refusals: every rank's messages."""
+    def untouched(list_len, device="cpu"):
+        raise AssertionError(f"the circuit of {list_len} bids synthesized")
+
+    reqs = [tblindbid.make_prove_request(d=100 + i, k=200 + i, seed=300 + i,
+                                         pub_list_extra=list(range(LONG_LIST_BIDS - 1)),
+                                         toggle_pos=i) for i in range(2)]
+    # no proof: a request refused from its length is never read further
+    vreqs = [tblindbid.VerifyRequest(proof=None, score=r.q, z_img=r.z_img, seed=r.seed,
+                                     pub_list=r.pub_list) for r in reqs]
+    refused = {}
+    synthesize, tblindbid.blindbid_circuit = tblindbid.blindbid_circuit, untouched
+    try:
+        for entry, call in (("prove", lambda: tblindbid.prove_batch(reqs, mesh=m)),
+                            ("verify", lambda: tblindbid.verify_batch(vreqs, mesh=m))):
+            try:
+                call()
+            except ProofError as exc:  # the raise is what the tests read
+                refused[entry] = str(exc)
+    finally:
+        tblindbid.blindbid_circuit = synthesize
+    gathered = [None] * RANKS
+    torch.distributed.all_gather_object(gathered, refused)
+    return gathered
 
 
 def _references() -> dict:
@@ -366,6 +403,14 @@ def test_mesh_tampering_turns_its_own_place_only(ranks, i):
 
 def test_mesh_malformed_proof_raises_on_every_rank(ranks):
     assert all("non-canonical" in r["malformed"] for r in ranks[0])
+
+
+def test_mesh_refuses_a_long_list_on_every_rank(ranks):
+    """Every rank refused both entry points from the length, and every rank
+    reached the collective after them."""
+    want = "circuit exceeds generator capacity: n_pad 65536 > cap 2048"
+    for r in ranks[0]:
+        assert r["long list"] == [{"prove": want, "verify": want}] * RANKS
 
 
 def test_mesh_and_device_are_exclusive():

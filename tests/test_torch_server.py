@@ -497,7 +497,7 @@ def test_dispatch_service_exception_contained(exc, is_fault):
     """Every failure answers the error frame; only the device's own faults
     (KernelError, AcceleratorError, OutOfMemoryError) are also kept and stop
     the server.  A torch shape check's RuntimeError is not one of them."""
-    body = _verify_body(_dummy_proof(n_toggles=2), scalars=(1, 2, 3), pub_list=())
+    body = _verify_body(_dummy_proof(n_toggles=2), scalars=(1, 2, 3), pub_list=(1, 2))
     frame, server = _dispatch(_StubService(exc), b"\x02" + body)
     assert frame == srv.ERROR_FRAME
     assert (server.fault is exc) == is_fault
@@ -814,6 +814,9 @@ def test_live_server_serves_on_after_a_torch_shape_error(passes, monkeypatch):
 # ---------------------------------------------------------------------------
 
 OVER_CAPACITY_BIDS = 203  # n1 = 1442 + 3 * 203 = 2051 gates, n_pad = 4096 > 2048
+# n1 = 1442 + 3 * 20000 = 61442 gates, n_pad = 65536 (16 IPA rounds): minutes to
+# synthesize, so it must be refused from its length
+LONG_LIST_BIDS = 20000
 BASEPOINT = curve_host.ristretto_compress(curve_host.RISTRETTO_BASEPOINT)
 
 
@@ -836,18 +839,32 @@ HOSTILE = {
     "verify-0": lambda: _basepoint_verify(0, 11),
     "rounds-10": lambda: _basepoint_verify(4, 10),
     "odd-A_I1": lambda: _basepoint_verify(4, 11, a_i1=bytes([BASEPOINT[0] | 1]) + BASEPOINT[1:]),
+    "prove-20000": lambda: b"\x01" + _prove_body(pub_list=range(1000, 1000 + LONG_LIST_BIDS),
+                                                  toggle=0),
+    "verify-20000": lambda: _basepoint_verify(LONG_LIST_BIDS, 16),
 }
-# the requests refused before the prover or verifier is made
-NO_TABLES = ("verify-203", "prove-203", "verify-0")
+# the requests refused from their list's length, before any synthesis, table
+# or pass
+NO_TABLES = ("verify-203", "prove-203", "verify-0", "prove-20000", "verify-20000")
 
 
 @pytest.fixture
 def device_calls(monkeypatch):
     """generator_tables stubbed, and it and the device phases of the prover
-    and verifier recorded: a refused request reaches none of the phases.  A
-    phase that is reached also raises, which the server would only answer
-    with the error frame: the record is what the tests read."""
+    and verifier recorded, and the synthesis of any circuit but the usual
+    list length's: a refused request reaches none of them.  A phase that is
+    reached also raises, which the server would only answer with the error
+    frame: the record is what the tests read."""
     calls = []
+    synthesize = blindbid.blindbid_circuit
+
+    def synthesis(list_len, device="cpu"):
+        if list_len != srv.LIST_LEN:
+            calls.append(f"blindbid_circuit({list_len})")
+            raise AssertionError(f"the circuit of {list_len} bids synthesized")
+        return synthesize(list_len, device)
+
+    monkeypatch.setattr(blindbid, "blindbid_circuit", synthesis)
 
     def recorder(name):
         def record(*args, **kwargs):
@@ -865,10 +882,20 @@ def device_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("name", NO_TABLES)
-def test_dispatch_refuses_hostile_request_through_the_real_service(device_calls, name):
-    """The real BatchingService on the CPU: the error frame, no tables built,
-    no fault kept, the server not stopped."""
+def test_dispatch_refuses_hostile_request_through_the_real_service(device_calls, caplog, name):
+    """The real BatchingService on the CPU: the error frame, answered on the
+    event loop without a submit to the service, nothing synthesized, no
+    tables built, no fault kept, the server not stopped, and the refusal
+    logged as an error of the request, without a traceback."""
     service = srv.BatchingService(device="cpu")
+    submitted = []
+    submit = service.submit
+
+    async def recording_submit(kind, shape_key, item):
+        submitted.append((kind, shape_key))
+        return await submit(kind, shape_key, item)
+
+    service.submit = recording_submit
     service.start()
     try:
         frame, server = _dispatch(service, HOSTILE[name]())
@@ -876,7 +903,12 @@ def test_dispatch_refuses_hostile_request_through_the_real_service(device_calls,
         service.close()
     assert frame == srv.ERROR_FRAME
     assert server.fault is None and not server._stop.is_set()
-    assert device_calls == []
+    assert device_calls == [] and submitted == []
+    errors = [r for r in caplog.records if r.name == "blindbid.server"]
+    assert [r.levelname for r in errors] == ["ERROR"]
+    assert errors[0].exc_info is None
+    why = "empty bid list" if name == "verify-0" else "exceeds generator capacity"
+    assert why in errors[0].getMessage()
 
 
 def test_live_server_answers_hostile_requests_and_serves_on(device_calls):
@@ -893,6 +925,44 @@ def test_live_server_answers_hostile_requests_and_serves_on(device_calls):
     # only the two list-length-4 requests made a verifier, and neither
     # reached a device phase
     assert device_calls == ["generator_tables", "generator_tables"]
+
+
+def test_live_server_refuses_a_long_list_while_a_pass_holds_the_device_thread(device_calls,
+                                                                             monkeypatch):
+    """A prove pass that blocks on an event holds the service's one worker
+    thread; while it is held, the 20,000-bid requests on a second connection
+    are answered 0xff (refused on the event loop, never queued), and only
+    then is the pass released and its own request answered."""
+    started, release = threading.Event(), threading.Event()
+
+    def held(items, device=None):
+        started.set()
+        if not release.wait(timeout=60):
+            raise AssertionError("the held pass was never released")
+        return [_dummy_proof(tag=i) for i in range(len(items))]
+
+    monkeypatch.setattr(blindbid, "prove_batch", held)
+    prove_req, _ = _load("session_prove.bin")
+
+    def talk(path):
+        with _connect(path) as first, _connect(path) as second:
+            try:
+                first.sendall(client.frame(prove_req))
+                assert started.wait(timeout=60), "the held pass did not start"
+                refused = {name: client.send_frame(second, HOSTILE[name]())
+                           for name in ("prove-20000", "verify-20000")}
+                released_before = release.is_set()
+            finally:
+                release.set()
+            return refused, released_before, client.read_frame(first)
+
+    (refused, released_before, held_answer), server = _serve(
+        srv.BatchingService(device="cpu"), talk)
+    assert refused == {"prove-20000": srv.ERROR_FRAME, "verify-20000": srv.ERROR_FRAME}
+    assert not released_before
+    assert srv.decode_proof(held_answer) == _dummy_proof(tag=0)
+    assert server.fault is None
+    assert device_calls == []
 
 
 # ---------------------------------------------------------------------------
