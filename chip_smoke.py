@@ -61,7 +61,9 @@ Phases, in order; any failure exits non-zero:
      rng = default_rng(7) at bids x points = 4 x 1 and 2 x 2 (every proof's
      digest equal to phase 4's, all verify, a wrong seed rejected in its own
      place, MESH_TRIPS timed round trips each), B = 5 and 3 at 4 x 1 (uneven
-     rows, then a rank with none), sharded_msm over the 4096 G and H
+     rows, then a rank with none), BASELINE config 4's CONFIG4_BATCH = 256
+     requests at 4 x 1 (64 bids a rank: all verify, one timed round trip, the
+     256 digests handed to phase 9), sharded_msm over the 4096 G and H
      generators at 1 x 4 and over 64 points against host sums,
      sharded_bucket_step at 2 x 2, dryrun_multichip; every kernel must have
      launched in the ranks (counts summed over ranks).  A rank's exception,
@@ -113,7 +115,21 @@ Phases, in order; any failure exits non-zero:
         then verifying its own proof; every batch flushed holds one list
         length, and both lengths are flushed apart.
      Phase 8 takes about 70 s of the run's 370 s on an NVIDIA H100 80GB HBM3;
-  9. the kernels line (JSON), the card line, then the result line.
+  9. BASELINE.md config 4, 256 independent bids: requests(CONFIG4_BATCH)
+     (list length 4, n1 = 1454, n = 2048) through prove_batch / verify_batch
+     in one batch with rng = default_rng(7):
+     a. one warm-up round trip: every proof verifies, its digest equals the
+        one phase 6's 4 x 1 ranks made (rank 0's draws are broadcast, so the
+        bytes agree) and the first 16 equal phase 4's; a wrong seed at place
+        CONFIG4_BAD is rejected there only; CONFIG4_TRIPS timed round trips
+        (s/op median and spread beside phase 4's); one round trip with the
+        spans on and the launch counts set to 0 just before it and read just
+        after (every kernel must have launched), in which `KernelShapes`
+        keeps each kernel's largest call; the peak device memory of the
+        phase; the device-busy share of one round trip under torch.profiler;
+     b. every kernel at the largest shape 9a gave it, exact against
+        canon(plain) on LARGE_SLICE units at each end, timed as in phase 2;
+ 10. the kernels line (JSON), the card line, then the result line.
 """
 
 from __future__ import annotations
@@ -280,6 +296,13 @@ FULL_LIST_POINTS = (4 + FULL_LIST) + 5 + 3 + 2 * 11
 FULL_LIST_BATCH = 16  # 8b's batch, the server's cap
 FULL_LIST_BAD = 9  # the place whose seed is changed in 8b's wrong-seed pass
 FULL_LIST_CLIENTS = 16  # 8d's connections at once: all at 202 bids, then half and half
+# phase 9: BASELINE.md config 4, 256 independent bids (list length 4) in one
+# batch; its timed round trips, the place whose seed is changed, and the
+# layout of phase 6's ranks that proves the same batch (64 bids a rank)
+CONFIG4_BATCH = 256
+CONFIG4_TRIPS = 2
+CONFIG4_BAD = 201
+CONFIG4_MESH_LAYOUT = (4, 1)
 
 
 def fail(msg: str) -> None:
@@ -1068,14 +1091,15 @@ def mesh_rank(dev, digests: list[str]) -> dict:
               for layout in (*MESH_LAYOUTS, (1, MESH_RANKS))}
     out["ready"] = time.time()
     reqs = requests(16)
+    reqs_config4 = requests(CONFIG4_BATCH)
 
     def check(cond, what):
         if not cond:
             raise AssertionError(f"rank {dist.get_rank()}: {what}")
 
-    def round_trip(mesh, n):
-        proofs = prove_batch(reqs[:n], rng=np.random.default_rng(7), mesh=mesh)
-        oks = verify_batch(verify_requests(reqs[:n], proofs), mesh=mesh)
+    def round_trip(mesh, n, batch=reqs):
+        proofs = prove_batch(batch[:n], rng=np.random.default_rng(7), mesh=mesh)
+        oks = verify_batch(verify_requests(batch[:n], proofs), mesh=mesh)
         torch.cuda.synchronize()
         return proofs, oks
 
@@ -1121,6 +1145,18 @@ def mesh_rank(dev, digests: list[str]) -> dict:
         proofs, oks = round_trip(meshes[(4, 1)], n)
         check([proof_digest(p) for p in proofs] == digests[:n] and oks == [True] * n,
               f"B = {n} at (4, 1): proofs or verdicts differ")
+    # config 4: phase 9 holds these digests to its direct ones
+    n, mesh = CONFIG4_BATCH, meshes[CONFIG4_MESH_LAYOUT]
+    proofs, oks = round_trip(mesh, n, reqs_config4)
+    check(oks == [True] * n, f"B = {n} at {CONFIG4_MESH_LAYOUT}: verify gave {oks}")
+    out["config4 digests"] = [proof_digest(p) for p in proofs]
+    del proofs
+    dist.barrier()
+    t0 = time.perf_counter()
+    _, oks = round_trip(mesh, n, reqs_config4)
+    dist.barrier()
+    out["config4 s_per_op"] = (time.perf_counter() - t0) / n
+    check(oks == [True] * n, f"B = {n} at {CONFIG4_MESH_LAYOUT}: timed round trip gave {oks}")
     m14 = meshes[(1, MESH_RANKS)]
     big = pmesh.sharded_msm(m14, gens, torch.from_numpy(limb.ints_to_limbs(gen_scalars)).to(dev))
     small = pmesh.sharded_msm(m14, edwards.from_host(small_host, device=dev),
@@ -1143,7 +1179,9 @@ def mesh_rank(dev, digests: list[str]) -> dict:
     return out
 
 
-def mesh_phase(digests: list[str], s_per_op_direct: float) -> dict:
+def mesh_phase(digests: list[str], s_per_op_direct: float) -> tuple[dict, list[str]]:
+    """Returns the launch counts summed over the ranks and the digests of the
+    config-4 batch that the ranks proved."""
     from dusk_blindbidproof_tpu_torch.ops import fused
     from dusk_blindbidproof_tpu_torch.parallel import mesh as pmesh
 
@@ -1167,12 +1205,19 @@ def mesh_phase(digests: list[str], s_per_op_direct: float) -> dict:
     print(f"mesh: B = {MESH_UNEVEN_B} at 4x1 = phase 4's first B proofs, all verify; sharded_msm "
           f"over 4096 and 64 points, sharded_bucket_step at 2x2 and dryrun_multichip agree",
           flush=True)
+    config4 = [r["config4 digests"] for r in ranks]
+    if any(d != config4[0] for d in config4):
+        fail("the ranks returned different config-4 batches")
+    layout = "x".join(map(str, CONFIG4_MESH_LAYOUT))
+    print(f"mesh {layout}: B = {CONFIG4_BATCH} ({CONFIG4_BATCH // CONFIG4_MESH_LAYOUT[0]} bids a "
+          f"rank) all verify; one timed round trip {ranks[0]['config4 s_per_op']} s/op (rank 0); "
+          f"its digests go to phase 9", flush=True)
     counts = {k: sum(r["launches"][k] for r in ranks) for k in fused.KERNELS}
     print(f"mesh: launches summed over the ranks: {counts}", flush=True)
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched in the ranks: {missing}")
-    return counts
+    return counts, config4[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1308,6 +1353,19 @@ def profiled(fn) -> tuple[list[dict], float]:
     return kernel_rows(prof), wall
 
 
+def print_profile(fn, label: str) -> None:
+    """`profiled(fn)`, printed: the wall, the device-busy ms and share, then
+    the 12 largest kernels and every kernel of the port's own."""
+    rows, wall = profiled(fn)
+    busy = sum(r["device_ms"] for r in rows)
+    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
+    print(f"{label}: profiled round trip {wall:.4f} s wall, device busy {busy:.1f} ms, share "
+          f"{busy / (wall * 1e3)}; the port's own kernels {sum(r['device_ms'] for r in own):.3f} "
+          f"ms; the 12 largest, then every own kernel:", flush=True)
+    for r in rows[:12] + own:
+        print(f"  {r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}", flush=True)
+
+
 def chain_large(dev) -> dict:
     """Phase 7b: n = cap = 2^16 at batch CHAIN_BATCH.  Returns the launch
     counts of the counted round trip."""
@@ -1383,16 +1441,45 @@ def chain_large(dev) -> dict:
     if missing:
         fail(f"kernels never launched at n = {n}: {missing}")
 
-    rows, wall = profiled(round_trip)
-    busy = sum(r["device_ms"] for r in rows)
-    print(f"chain n = {n} B = {B}: profiled round trip {wall:.4f} s wall, device busy "
-          f"{busy:.1f} ms, share {busy / (wall * 1e3)}", flush=True)
-    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
-    print(f"  the port's own kernels {sum(r['device_ms'] for r in own):.3f} ms; the 12 "
-          f"largest, then every own kernel:", flush=True)
-    for r in rows[:12] + own:
-        print(f"  {r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}", flush=True)
+    print_profile(round_trip, f"chain n = {n} B = {B}")
     return counts
+
+
+def sliced_case(results: dict, counts: dict, name, label, kern, pairs, ctx, n_bytes, n_ops,
+                reps, plain_of) -> None:
+    """One kernel at a shape too large for its plain version: kern() runs
+    the kernel whole; pairs are (pick, ref) with pick(kernel output) and
+    ref() the same tensors from the plain version on a slice, held exact
+    against canon(plain).  The plain time is that of the compared calls
+    (one each: a plain chain takes seconds); the kernel's is timed as in
+    phase 2.  Appends a row to results[name]."""
+    from dusk_blindbidproof_tpu_torch.ops import limb
+
+    got = kern()
+    err, plain = 0, 0.0
+    for pick, ref in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref()
+        torch.cuda.synchronize()
+        plain += (time.perf_counter() - t0) * 1e3
+        mine = pick(got)
+        mine, want = ((mine,), (want,)) if isinstance(want, torch.Tensor) else (mine, want)
+        for g, w in zip(mine, want):
+            if g.shape != w.shape:
+                fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
+            err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
+    if err:
+        fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
+    del got
+    ms = device_ms(kern, reps)
+    bms, by = bound_ms(n_bytes, n_ops)
+    row = dict(label=label, ms=ms, bound_ms=bms, bound_by=by, plain_ms=plain,
+               plain_of=plain_of, launches=counts[name])
+    results.setdefault(name, []).append(row)
+    print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms, bound "
+          f"{bms:.6f} ms ({by}), plain {plain:.3f} ms on {plain_of}; "
+          f"{counts[name]} launches a round trip", flush=True)
 
 
 def check_large_kernels(dev, counts: dict) -> dict:
@@ -1411,32 +1498,6 @@ def check_large_kernels(dev, counts: dict) -> dict:
 
     def rand(shape):
         return torch.randint(0, 8193, shape, dtype=torch.int32, device=dev, generator=gen)
-
-    def case(name, label, kern, pairs, ctx, n_bytes, n_ops, reps, plain_of):
-        """pairs: (pick, ref) with pick(kernel output) and ref() the same
-        tensors from the plain version on a slice."""
-        got = kern()
-        err, plain = 0, 0.0
-        for pick, ref in pairs:
-            want = ref()
-            mine = pick(got)
-            mine, want = ((mine,), (want,)) if isinstance(want, torch.Tensor) else (mine, want)
-            for g, w in zip(mine, want):
-                if g.shape != w.shape:
-                    fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
-                err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
-            plain += cuda_ms(ref, 1)
-        if err:
-            fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
-        del got
-        ms = device_ms(kern, reps)
-        bms, by = bound_ms(n_bytes, n_ops)
-        row = dict(label=label, ms=ms, bound_ms=bms, bound_by=by, plain_ms=plain,
-                   plain_of=plain_of, launches=counts[name])
-        results.setdefault(name, []).append(row)
-        print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms, bound "
-              f"{bms:.6f} ms ({by}), plain {plain:.3f} ms on {plain_of}; "
-              f"{counts[name]} launches a round trip", flush=True)
 
     def scan_items(shape):
         x = rand((*shape, 4, nl))
@@ -1464,7 +1525,7 @@ def check_large_kernels(dev, counts: dict) -> dict:
         pairs = [(lambda got, b=b, c0=c0, c1=c1: pick(got, b, c0, c1),
                   lambda b=b, c0=c0, c1=c1: fused.madd_scan_ref(flat[b, c0 * R:c1 * R], R))
                  for b, c0, c1 in ends]
-        case("madd_scan", f"{label}, {m} items in {m // R} blocks of {R}",
+        sliced_case(results, counts, "madd_scan", f"{label}, {m} items in {m // R} blocks of {R}",
              lambda: fused.madd_scan(x, R), pairs, limb.FP,
              (m * (SCAN_ITEM_ROWS["madd_scan"] + 4) + m // R * 4) * FE_BYTES,
              m * SCAN_FIELD_MULS["madd_scan"] * OPS_PER_FIELD_MUL, 3,
@@ -1479,7 +1540,7 @@ def check_large_kernels(dev, counts: dict) -> dict:
     ends = torch.cat([torch.arange(LARGE_SLICE, device=dev),
                       torch.arange(npts - LARGE_SLICE, npts, device=dev)])
     doubles = (WINDOWS - 1) * WINDOW_STEPS
-    case("double_chain", f"generator tables, {npts} points x {WINDOWS} windows x "
+    sliced_case(results, counts, "double_chain", f"generator tables, {npts} points x {WINDOWS} windows x "
          f"{WINDOW_STEPS} steps", lambda: fused.double_chain(p, WINDOWS, WINDOW_STEPS),
          [(lambda got: got[ends],
            lambda: fused.double_chain_ref(p[ends], WINDOWS, WINDOW_STEPS))], limb.FP,
@@ -1493,7 +1554,7 @@ def check_large_kernels(dev, counts: dict) -> dict:
     a[0, 0], b[0, 0] = 8192, 8192
     a[0, 1], b[0, 2] = 0, 0
     rows = B * n
-    case("mul_rows_fl", f"IPA fold, {rows} rows", lambda: fused.mul_rows(limb.FL, a, b),
+    sliced_case(results, counts, "mul_rows_fl", f"IPA fold, {rows} rows", lambda: fused.mul_rows(limb.FL, a, b),
          [(lambda got: got, lambda: fused.mul_rows_ref(limb.FL, a, b))], limb.FL,
          rows * 3 * FE_BYTES, rows * OPS_PER_FIELD_MUL, 20, f"all {rows} rows")
     return results
@@ -1634,15 +1695,7 @@ def full_list_b16(dev, counts_l4: dict, s_per_op_l4: list[float]):
     if over:
         fail(f"one-step launches above phase 4's at {FULL_LIST} bids: {over}")
 
-    rows, wall = profiled(round_trip)
-    busy = sum(r["device_ms"] for r in rows)
-    own = [r for r in rows if any(k in r["name"] for k in OWN_KERNELS)]
-    print(f"full list B={B}: profiled round trip {wall:.4f} s wall, device busy {busy:.1f} ms, "
-          f"share {busy / (wall * 1e3)}; the port's own kernels "
-          f"{sum(r['device_ms'] for r in own):.3f} ms; the 12 largest, then every own kernel:",
-          flush=True)
-    for r in rows[:12] + own:
-        print(f"  {r['device_ms']:10.3f} ms  x{r['calls']:<6d} {r['name'][:90]}", flush=True)
+    print_profile(round_trip, f"full list B={B}")
     return counts, s_per_op, scans.leaf
 
 
@@ -1763,6 +1816,263 @@ def full_list_server(dev, s_per_op_direct: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: BASELINE config 4, 256 independent bids in one batch
+# ---------------------------------------------------------------------------
+
+
+class KernelShapes:
+    """Inside the `with` block, every wrapper of ops/fused.py is wrapped:
+    for each kernel name, the call on CUDA tensors with the most work is kept
+    as (shape, parameters), where parameters are the square flag of K1, k of
+    the squaring chain, (windows, steps) of the doubling chain and R of the
+    scans."""
+
+    WRAPPERS = ("mul_rows", "sqr_chain", "add", "double", "double_chain", "madd_scan",
+                "add_scan", "add_total")
+
+    def __enter__(self):
+        from dusk_blindbidproof_tpu_torch.ops import fused
+
+        self.largest: dict[str, tuple] = {}
+        self._fused = fused
+        self._saved = {name: getattr(fused, name) for name in self.WRAPPERS}
+        keep = self.keep
+
+        def recording(wrapper, fn):
+            def call(*args):
+                if wrapper == "mul_rows":
+                    ctx, a, b = args
+                    keep(f"mul_rows_{ctx.name}", a, a is b, a.numel())
+                elif wrapper == "sqr_chain":
+                    keep("sqr_chain", args[1], args[2], args[1].numel() * args[2])
+                elif wrapper == "double_chain":
+                    keep("double_chain", args[0], args[1:], args[0].numel() * args[1] * args[2])
+                else:  # add, double (no parameter) and the scans (R)
+                    keep(wrapper, args[0], args[1] if wrapper in SCAN_ITEM_ROWS else None,
+                         args[0].numel())
+                return fn(*args)
+
+            return call
+
+        for name, fn in self._saved.items():
+            setattr(fused, name, recording(name, fn))
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        for name, fn in self._saved.items():
+            setattr(self._fused, name, fn)
+
+    def keep(self, name: str, x: torch.Tensor, params, work: int) -> None:
+        if x.is_cuda and work > self.largest.get(name, (None, None, 0))[2]:
+            self.largest[name] = (tuple(x.shape), params, work)
+
+
+def config4(dev, mesh_digests: list[str], digests_l4: list[str], counts_l4: dict,
+            s_per_op_l4: list[float]):
+    """Phase 9: B = CONFIG4_BATCH direct calls.  A proof depends on its own
+    request and its own draws alone, and the draws are taken in batch order,
+    so the first 16 proofs are phase 4's.  Returns (launch counts of the
+    counted round trip, s/op of the timed trips, the kernels' largest calls
+    in that round trip from KernelShapes)."""
+    from dusk_blindbidproof_tpu_torch.models.blindbid import prove_batch, verify_batch
+    from dusk_blindbidproof_tpu_torch.ops import fused
+    from dusk_blindbidproof_tpu_torch.utils import profiling
+
+    B = CONFIG4_BATCH
+    reqs = requests(B)
+
+    def round_trip():
+        proofs = prove_batch(reqs, rng=np.random.default_rng(7), device=dev)
+        oks = verify_batch(verify_requests(reqs, proofs), device=dev)
+        torch.cuda.synchronize()
+        return oks, proofs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    oks, proofs = round_trip()
+    warm = time.perf_counter() - t0
+    if oks != [True] * B:
+        fail(f"B={B}: the warm-up round trip gave {oks}")
+    digests = [proof_digest(p) for p in proofs]
+    if digests != mesh_digests:
+        wrong = [i for i, (a, b) in enumerate(zip(digests, mesh_digests)) if a != b]
+        fail(f"B={B}: the direct proofs differ from phase 6's ranks at places {wrong[:20]}")
+    if digests[:len(digests_l4)] != digests_l4:
+        fail(f"B={B}: the first {len(digests_l4)} proofs differ from phase 4's")
+    vreqs = verify_requests(reqs, proofs)
+    vreqs[CONFIG4_BAD].seed += 1
+    got = verify_batch(vreqs, device=dev)
+    if got != [i != CONFIG4_BAD for i in range(B)]:
+        fail(f"B={B}: a wrong seed at place {CONFIG4_BAD} gave "
+             f"{[i for i, ok in enumerate(got) if not ok]} rejected")
+    del proofs, vreqs
+    s_per_op = []
+    for _ in range(CONFIG4_TRIPS):
+        t0 = time.perf_counter()
+        oks, _ = round_trip()
+        s_per_op.append((time.perf_counter() - t0) / B)
+        if oks != [True] * B:
+            fail(f"B={B}: a timed round trip gave {oks}")
+    print(f"config 4, B={B}: every proof verifies and equals phase 6's {CONFIG4_MESH_LAYOUT} "
+          f"ranks' bytes (the first 16 phase 4's), a wrong seed rejected at place "
+          f"{CONFIG4_BAD} only; s/op over "
+          f"{CONFIG4_TRIPS} round trips: median {np.median(s_per_op)}, min {min(s_per_op)}, max "
+          f"{max(s_per_op)}, all {s_per_op} (warm-up {warm:.3f} s); phase 4 at B=16: median "
+          f"{np.median(s_per_op_l4)}, all {s_per_op_l4}", flush=True)
+
+    profiling.enable()
+    profiling.reset()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KernelShapes() as shapes:
+        oks, _ = round_trip()
+    wall = time.perf_counter() - t0
+    counts = fused.launch_counts()
+    profiling.enable(False)
+    if oks != [True] * B:
+        fail(f"B={B}: the counted round trip gave {oks}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(profiling.report(), flush=True)
+    print(f"config 4, B={B}: counted round trip {wall:.4f} s wall; launches {counts}; phase 4 "
+          f"at B=16 {counts_l4}; peak device memory {peak_gb:.3f} GB over the phase "
+          f"(torch.cuda.max_memory_allocated; {before_gb:.3f} GB allocated before it)", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched at B={B}: {missing}")
+
+    print_profile(round_trip, f"config 4, B={B}")
+    return counts, s_per_op, shapes.largest
+
+
+def check_config4_kernels(dev, largest: dict, counts: dict) -> dict:
+    """Phase 9b: every kernel at the largest shape the config-4 round trip
+    gave it, random limbs in [0, 8192] with an all-8192 unit and an identity
+    (or zero) unit at the front, exact against canon(plain) (`sliced_case`).
+    Each output unit (a row, a point, a point's windows, a scan block)
+    depends on its own inputs alone, so the plain version runs on
+    LARGE_SLICE units at each end.  Returns the rows by kernel."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(256)
+    nl, S = limb.NLIMBS, LARGE_SLICE
+    results = {}
+
+    def ends(n):
+        return torch.arange(n, device=dev) if n <= 2 * S else torch.cat(
+            [torch.arange(S, device=dev), torch.arange(n - S, n, device=dev)])
+
+    def rand(shape):
+        return torch.randint(0, 8193, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    for name in fused.KERNELS:
+        if name not in largest:
+            fail(f"phase 9's round trip gave {name} no CUDA operands")
+        shape, params, _ = largest[name]
+        ctx = limb.FL if name == "mul_rows_fl" else limb.FP
+        if name.startswith("mul_rows") or name == "sqr_chain":
+            a = rand(shape).view(-1, nl)
+            a[0], a[1] = 8192, 0
+            units, unit = a.shape[0], (nl,)
+            if name == "sqr_chain":
+                k = params
+
+                def kern():
+                    return fused.sqr_chain(ctx, a, k)
+
+                def ref(idx):
+                    return fused.sqr_chain_ref(ctx, a[idx], k)
+
+                n_bytes, n_ops, label = units * 2 * FE_BYTES, units * k * OPS_PER_FIELD_SQR, f"k = {k}"
+            else:
+                b = a if params else rand(a.shape)
+
+                def kern():
+                    return fused.mul_rows(ctx, a, b)
+
+                def ref(idx):
+                    return fused.mul_rows_ref(ctx, a[idx], b[idx])
+
+                n_bytes = units * (2 if params else 3) * FE_BYTES
+                n_ops = units * (OPS_PER_FIELD_SQR if params else OPS_PER_FIELD_MUL)
+                label = "square" if params else "product"
+            label = f"{label}, {units} rows"
+        elif name in ("add", "double", "double_chain"):
+            p = rand(shape).view(-1, 4, nl)
+            p[0], p[1] = 8192, edwards.identity(device=dev)
+            units, unit, label = p.shape[0], (4, nl), f"{p.shape[0]} points"
+            if name == "add":
+                q = rand(p.shape)
+
+                def kern():
+                    return fused.add(p, q)
+
+                def ref(idx):
+                    return fused.add_ref(p[idx], q[idx])
+
+                n_bytes, n_ops = units * POINT_BYTES["add"], units * OPS_PER_ADD
+            elif name == "double":
+                def kern():
+                    return fused.double(p)
+
+                def ref(idx):
+                    return fused.double_ref(p[idx])
+
+                n_bytes, n_ops = units * POINT_BYTES["double"], units * OPS_PER_DOUBLE
+            else:
+                windows, steps = params
+
+                def kern():
+                    return fused.double_chain(p, windows, steps)
+
+                def ref(idx):
+                    return fused.double_chain_ref(p[idx], windows, steps)
+
+                unit = (windows, 4, nl)
+                n_bytes = units * (1 + windows) * 4 * FE_BYTES
+                n_ops = units * (windows - 1) * (steps * OPS_PER_DOUBLE_XYZ + OPS_PER_FIELD_MUL)
+                label = f"{label} x {windows} windows x {steps} steps"
+        else:
+            R = params
+            x = rand(shape)
+            flat = x.view(-1, shape[-3], 4, nl)
+            ident = (edwards.identity_niels if name == "madd_scan" else edwards.identity)(device=dev)
+            flat[0, 0], flat[0, 1], flat[-1, -1] = 8192, ident, ident
+            units = flat.shape[0] * (shape[-3] // R)
+            blocks = flat.view(units, R, 4, nl)
+            n = units * R
+
+            def kern():
+                return getattr(fused, name)(x, R)
+
+            def ref(idx):
+                return getattr(fused, name + "_ref")(blocks[idx].reshape(-1, 4, nl), R)
+
+            n_bytes = (n * (SCAN_ITEM_ROWS[name] + (0 if name == "add_total" else 4))
+                       + units * 4) * FE_BYTES
+            n_ops = n * SCAN_FIELD_MULS[name] * OPS_PER_FIELD_MUL
+            label = f"{n} items in {units} blocks of {R}"
+        idx = ends(units)
+
+        def pick(got):
+            if name == "add_total":
+                return got.view(units, 4, nl)[idx]
+            if name in SCAN_ITEM_ROWS:
+                within, totals = got
+                return (within.view(units, R, 4, nl)[idx].reshape(-1, 4, nl),
+                        totals.view(units, 4, nl)[idx])
+            return got.view(-1, *unit)[idx]
+
+        sliced_case(results, counts, name, f"config 4, {label}", kern,
+                    [(pick, lambda: ref(idx))], ctx, n_bytes, n_ops, 3,
+                    f"{len(idx)} of {units} units")
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1790,7 +2100,7 @@ def main() -> None:
     server_counts = server_in_process(dev, float(np.median(s_per_op)), card)
     server_entry_point(card)
     scripts_on_card()
-    mesh_counts = mesh_phase(digests, float(np.median(s_per_op)))
+    mesh_counts, mesh_config4 = mesh_phase(digests, float(np.median(s_per_op)))
     torch.cuda.empty_cache()
     chain_small(dev)
     large_counts = chain_large(dev)
@@ -1802,6 +2112,10 @@ def main() -> None:
     full_shapes = check_full_list_kernels(dev, leaf, full_counts)
     del leaf
     full_server_counts = full_list_server(dev, float(np.median(full_s_per_op)))
+    torch.cuda.empty_cache()
+    config4_counts, config4_s_per_op, largest = config4(dev, mesh_config4, digests, counts,
+                                                        s_per_op)
+    config4_shapes = check_config4_kernels(dev, largest, config4_counts)
 
     line = []
     for name, r in kernels.items():
@@ -1811,15 +2125,18 @@ def main() -> None:
             "launches_mesh": mesh_counts[name], "launches_large": large_counts[name],
             "launches_full_list": full_counts[name],
             "launches_full_list_server": full_server_counts[name],
+            "launches_config4": config4_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "large_shapes": large.get(name, []),
             "full_list_shapes": [row for row in full_shapes if row["name"] == name],
+            "config4_shapes": config4_shapes[name],
         })
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s; s/op at B=16: median "
           f"{np.median(s_per_op)} over {TIMED_TRIPS} round trips at 4 bids, "
-          f"{np.median(full_s_per_op)} at {FULL_LIST} bids")
+          f"{np.median(full_s_per_op)} at {FULL_LIST} bids; at B={CONFIG4_BATCH} and 4 bids "
+          f"{np.median(config4_s_per_op)}")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,14 @@ Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
 `madd_scan_ref`, `add_scan_ref`, `add_total_ref`) and a CUDA tensor to its
 kernel, or raises: nothing falls back from the kernel to the plain version.
 A CUDA wrapper checks device, dtype, shape and contiguity, allocates its
-output with torch.empty, launches on the current stream, raises
-`KernelError` on the returned cudaGetLastError() code, and adds one to its
-launch count.  A failed build or initialisation raises `KernelError` too.  The
-point kernels read 16-byte vectors and raise on an operand that is not
-aligned so; the row kernels (K1, `sqr_chain`) take any int32 alignment and
-copy the ragged head and tail of a block's rows word by word.
+output with torch.empty, launches on its operands' card and that card's
+current stream (inside a device guard of that card, whichever card is
+current), raises `KernelError` on the returned cudaGetLastError() code, and
+adds one to its launch count.  A failed build or initialisation raises
+`KernelError` too.  The point kernels read 16-byte vectors and raise on an
+operand that is not aligned so; the row kernels (K1, `sqr_chain`) take any
+int32 alignment and copy the ragged head and tail of a block's rows word by
+word.
 
 Kernel inputs are limbs in [0, 8192] (any std-form or strict value);
 kernel outputs are canonical (limbs < 2^13, value < M), which is a valid
@@ -197,8 +199,15 @@ def _check(shape, *xs, vector_loads: bool = False) -> None:
             raise ValueError("kernel operands must be 16-byte aligned")
 
 
-def _launch(name: str, fn, *args) -> None:
-    rc = fn(*args)
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch the library's `entry` on `device`, the card of its operands,
+    with that card's current stream as the last argument.  The CUDA runtime
+    launches into the calling thread's current device, so the launch is made
+    inside a guard of `device`: a kernel on another card than its pointers
+    would fault or race that card's stream."""
+    lib = _ready(device)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, _stream(device))
     if rc != 0:
         raise KernelError(f"kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -235,10 +244,9 @@ def mul_rows(ctx: limb.ModContext, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     n = out.numel() // NLIMBS
     if n:
-        lib = _ready(a.device)
         mod = {"fp": 0, "fl": 1}[ctx.name]
-        _launch(f"mul_rows_{ctx.name}", lib.bb_mul_rows, mod, a.data_ptr(),
-                b.data_ptr(), out.data_ptr(), n, _stream(a.device))
+        _launch(f"mul_rows_{ctx.name}", "bb_mul_rows", a.device, mod, a.data_ptr(),
+                b.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -265,9 +273,7 @@ def sqr_chain(ctx: limb.ModContext, x: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty_like(x)
     n = out.numel() // NLIMBS
     if n:
-        lib = _ready(x.device)
-        _launch("sqr_chain", lib.bb_sqr_chain, x.data_ptr(), out.data_ptr(), n, k,
-                _stream(x.device))
+        _launch("sqr_chain", "bb_sqr_chain", x.device, x.data_ptr(), out.data_ptr(), n, k)
     return out
 
 
@@ -333,7 +339,7 @@ def double_ref(p: torch.Tensor) -> torch.Tensor:
     return _finish(e, f, g, h)
 
 
-def _point_op(name: str, fn_name: str, *xs) -> torch.Tensor:
+def _point_op(name: str, entry: str, *xs) -> torch.Tensor:
     shape = xs[0].shape
     if tuple(shape[-2:]) != (4, NLIMBS):
         raise ValueError(f"point ops take [..., 4, {NLIMBS}] rows, got {tuple(shape)}")
@@ -341,10 +347,7 @@ def _point_op(name: str, fn_name: str, *xs) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
     n = out.numel() // (4 * NLIMBS)
     if n:
-        lib = _ready(out.device)
-        ptrs = [x.data_ptr() for x in xs]
-        _launch(name, getattr(lib, fn_name), *ptrs, out.data_ptr(), n,
-                _stream(out.device))
+        _launch(name, entry, out.device, *(x.data_ptr() for x in xs), out.data_ptr(), n)
     return out
 
 
@@ -392,9 +395,8 @@ def double_chain(points: torch.Tensor, windows: int, steps: int) -> torch.Tensor
                       device=points.device)
     n = points.numel() // (4 * NLIMBS)
     if n:
-        lib = _ready(points.device)
-        _launch("double_chain", lib.bb_double_chain, points.data_ptr(), out.data_ptr(),
-                n, windows, steps, _stream(points.device))
+        _launch("double_chain", "bb_double_chain", points.device, points.data_ptr(),
+                out.data_ptr(), n, windows, steps)
     return out
 
 
@@ -453,10 +455,8 @@ def _scan_op(name: str, leaf: int, mode: int, items: torch.Tensor, R: int):
     within = torch.empty_like(items) if mode == _MODE_PREFIXES else None
     nblocks = totals.numel() // (4 * NLIMBS)
     if nblocks:
-        lib = _ready(items.device)
-        _launch(name, lib.bb_point_scan, leaf, mode, items.data_ptr(),
-                None if within is None else within.data_ptr(),
-                totals.data_ptr(), nblocks, R, _stream(items.device))
+        _launch(name, "bb_point_scan", items.device, leaf, mode, items.data_ptr(),
+                None if within is None else within.data_ptr(), totals.data_ptr(), nblocks, R)
     return within, totals
 
 

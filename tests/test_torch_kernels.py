@@ -7,10 +7,13 @@ machine without them:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
-The kernel tests need a card (marker `cuda`) and skip without one.  The
-kernels return canonical limbs, so each is held to `canon(plain)` exactly,
-on random rows, all-8192 rows (the largest input the plain engine hands
-over, limb 20 included) and identity points.
+The kernel tests need a card (marker `cuda`) and skip without one; the
+test that runs every wrapper on cuda:1 while cuda:0 is current needs two.
+The kernels return canonical limbs, so each is held to `canon(plain)`
+exactly, on random rows, all-8192 rows (the largest input the plain engine
+hands over, limb 20 included) and identity points.  Without a card, a
+stand-in for the current device holds every launch to a guard of its
+operands' card.
 """
 
 import numpy as np
@@ -240,3 +243,137 @@ def test_cpu_tensors_take_the_plain_versions():
     assert fused.launch_counts() == before
     ops = fused.kernel_operands(a, b)
     assert ops[0] is a and ops[1] is b
+
+
+# ---------------------------------------------------------------------------
+# Every launch is made on its operands' card, whichever card is current
+# ---------------------------------------------------------------------------
+
+# the library entry each kernel name launches through
+ENTRIES = {"mul_rows_fp": "bb_mul_rows", "mul_rows_fl": "bb_mul_rows",
+           "sqr_chain": "bb_sqr_chain", "add": "bb_point_add", "double": "bb_point_double",
+           "double_chain": "bb_double_chain", "madd_scan": "bb_point_scan",
+           "add_scan": "bb_point_scan", "add_total": "bb_point_scan"}
+
+
+class _Cards:
+    """A stand-in for the CUDA runtime's per-thread current device:
+    `guard(device)` replaces torch.cuda.device, `stream(device)`
+    torch.cuda.current_stream (the handle names its card), and `lib(rc)` is
+    a library whose every entry records the current card and its arguments
+    and returns rc."""
+
+    def __init__(self, current: int):
+        self.current = current
+        self.calls = []
+
+    def guard(self, device):
+        cards = self
+
+        class Guard:
+            def __enter__(self):
+                self.outer, cards.current = cards.current, torch.device(device).index
+
+            def __exit__(self, *exc_info):
+                cards.current = self.outer
+
+        return Guard()
+
+    @staticmethod
+    def stream(device):
+        class Stream:
+            cuda_stream = 1000 + torch.device(device).index
+
+        return Stream()
+
+    def lib(self, rc: int = 0):
+        cards = self
+
+        class Lib:
+            def __getattr__(self, entry):
+                def fn(*args):
+                    cards.calls.append((entry, cards.current, args))
+                    return rc
+
+                return fn
+
+        return Lib()
+
+
+@pytest.mark.parametrize("card, current", [(1, 0), (0, 1)], ids=["cuda:1-from-0", "cuda:0-from-1"])
+@pytest.mark.parametrize("name", fused.KERNELS)
+def test_launch_is_made_inside_a_guard_of_its_card(monkeypatch, name, card, current):
+    """Each kernel name's launch runs while its operands' card is current,
+    with that card's stream as the last argument; the caller's card is
+    current again after it."""
+    cards = _Cards(current)
+    monkeypatch.setattr(torch.cuda, "device", cards.guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", cards.stream)
+    monkeypatch.setattr(fused, "_ready", lambda device: cards.lib())
+    monkeypatch.setattr(fused, "LAUNCHES", dict.fromkeys(fused.KERNELS, 0))
+    fused._launch(name, ENTRIES[name], torch.device("cuda", card), 11, 22)
+    assert cards.calls == [(ENTRIES[name], card, (11, 22, 1000 + card))]
+    assert cards.current == current
+    assert fused.launch_counts() == {k: int(k == name) for k in fused.KERNELS}
+
+
+def test_refused_launch_raises_counts_nothing_and_leaves_the_guard(monkeypatch):
+    cards = _Cards(0)
+    monkeypatch.setattr(torch.cuda, "device", cards.guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", cards.stream)
+    monkeypatch.setattr(fused, "_ready", lambda device: cards.lib(rc=700))
+    monkeypatch.setattr(fused, "LAUNCHES", dict.fromkeys(fused.KERNELS, 0))
+    with pytest.raises(fused.KernelError, match="cudaError 700"):
+        fused._launch("add", "bb_point_add", torch.device("cuda", 1), 1, 2, 3, 4)
+    assert [(entry, card) for entry, card, _ in cards.calls] == [("bb_point_add", 1)]
+    assert cards.current == 0
+    assert fused.launch_counts() == dict.fromkeys(fused.KERNELS, 0)
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    return torch.device("cuda", 1)
+
+
+def _wrapper_cases(name):
+    """(kernel call, plain call) of one wrapper, on CPU operands."""
+    rows, rows2 = _rows(21, (300, limb.NLIMBS)), _rows(24, (300, limb.NLIMBS))
+    pts, other = _rows(22, (3, 64, 4, limb.NLIMBS)), _rows(23, (3, 64, 4, limb.NLIMBS))
+    pts[0, 1] = edwards.identity()
+    if name.startswith("mul_rows"):
+        ctx = limb.FP if name == "mul_rows_fp" else limb.FL
+        return (lambda d: fused.mul_rows(ctx, rows.to(d), rows2.to(d)),
+                lambda: fused.mul_rows_ref(ctx, rows, rows2), ctx)
+    if name == "sqr_chain":
+        return (lambda d: fused.sqr_chain(limb.FP, rows.to(d), 5),
+                lambda: fused.sqr_chain_ref(limb.FP, rows, 5), limb.FP)
+    if name == "add":
+        return lambda d: fused.add(pts.to(d), other.to(d)), lambda: fused.add_ref(pts, other), limb.FP
+    if name == "double":
+        return lambda d: fused.double(pts.to(d)), lambda: fused.double_ref(pts), limb.FP
+    if name == "double_chain":
+        return (lambda d: fused.double_chain(pts.to(d), 3, 2),
+                lambda: fused.double_chain_ref(pts, 3, 2), limb.FP)
+    kern, ref, _ = SCAN_KERNELS[name]
+    return lambda d: kern(pts.to(d), 32), lambda: ref(pts, 32), limb.FP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fused.KERNELS)
+def test_wrapper_runs_on_a_card_that_is_not_current(second_card, name):
+    """Every wrapper on cuda:1 while cuda:0 is current: exact against
+    canon(plain), one launch, and cuda:0 still current after it."""
+    kern, ref, ctx = _wrapper_cases(name)
+    torch.cuda.set_device(0)
+    before = fused.LAUNCHES[name]
+    got = _as_tuple(kern(second_card))
+    torch.cuda.synchronize(second_card)
+    assert torch.cuda.current_device() == 0
+    assert fused.LAUNCHES[name] == before + 1
+    want = [limb.canon(ctx, w) for w in _as_tuple(ref())]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device == second_card
+        assert torch.equal(g.cpu(), w)

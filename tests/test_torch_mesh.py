@@ -17,6 +17,10 @@ share of every case, and the tests read what the ranks returned:
     oracle's for its place, on every rank; the honest batch verifies; a
     tampered proof or public turns its own place only; a malformed proof
     raises ProofError on every rank;
+  * BASELINE config 4's sharding rule at a small size: the same circuit at
+    B = 18 over 4 x 1 (slices of 5, 5, 4 and 4): each proof's bytes equal
+    the unsharded proof of its place (the host oracle's, which is
+    mesh=None's), and the batch verifies;
   * `prove_batch` / `verify_batch(mesh=)` at 20,000 bids: refused with
     ProofError from the list's length on every rank, nothing synthesized,
     and every rank goes on to the next collective.
@@ -64,6 +68,10 @@ B = 5
 PROVER_LAYOUT = (2, 2)
 TAMPERED = {1: "t_x", 4: "public"}  # as tests/test_torch_batch.py's B = 5 pass
 MALFORMED_PLACE = 4  # on the second bids index: its ranks raise, the others must too
+# BASELINE config 4's rule, independent bids split over the bids axis, at a
+# batch that 4 ranks cannot split evenly: slices of 5, 5, 4 and 4
+UNEVEN_B = 18
+UNEVEN_LAYOUT = (4, 1)
 # a bid list whose circuit (n_pad 65536) the generators cannot hold and whose
 # synthesis would take minutes: refused from its length on every rank
 LONG_LIST_BIDS = 20000
@@ -93,37 +101,38 @@ def _place(i):
     return a, blind, a_L, a_R, a_O, x
 
 
-def _batch(circuit):
-    """(values, blindings, witness, publics) of places 0 .. B-1."""
-    places = [_place(i) for i in range(B)]
+def _batch(circuit, n=B):
+    """(values, blindings, witness, publics) of places 0 .. n-1."""
+    places = [_place(i) for i in range(n)]
 
     def rows(k):
-        arr = np.zeros((B, circuit.n_pad, limb.NLIMBS), dtype=np.int32)
+        arr = np.zeros((n, circuit.n_pad, limb.NLIMBS), dtype=np.int32)
         for i, p in enumerate(places):
             arr[i, :GATES] = limb.ints_to_limbs_fast(p[k])
         return arr
 
     witness = ProverWitness(
         a_L=rows(2), a_R=rows(3), a_O=rows(4),
-        v=limb.ints_to_limbs_fast([p[0] for p in places], (B, 1)),
-        v_blinding=limb.ints_to_limbs_fast([p[1] for p in places], (B, 1)),
-        publics=limb.ints_to_limbs_fast([p[5] for p in places], (B, 1)),
+        v=limb.ints_to_limbs_fast([p[0] for p in places], (n, 1)),
+        v_blinding=limb.ints_to_limbs_fast([p[1] for p in places], (n, 1)),
+        publics=limb.ints_to_limbs_fast([p[5] for p in places], (n, 1)),
     )
     return [[p[0]] for p in places], [[p[1]] for p in places], witness, [p[5] for p in places]
 
 
-def _prove(circuit, device, mesh=None):
-    values, blinds, witness, publics = _batch(circuit)
-    prover = Prover([Transcript(LABEL) for _ in range(B)], cap=CAP, device=device, mesh=mesh)
+def _prove(circuit, device, mesh=None, n=B):
+    values, blinds, witness, publics = _batch(circuit, n)
+    prover = Prover([Transcript(LABEL) for _ in range(n)], cap=CAP, device=device, mesh=mesh)
     commitments = prover.commit_batch(values, blinds)
     return prover.prove(circuit, witness), commitments, publics
 
 
 def _verify(circuit, proofs, commitments, publics, mesh):
-    verifier = Verifier([Transcript(LABEL) for _ in range(B)], cap=CAP, mesh=mesh)
+    n = len(proofs)
+    verifier = Verifier([Transcript(LABEL) for _ in range(n)], cap=CAP, mesh=mesh)
     verifier.commit_batch(commitments)
     return verifier.verify(circuit, proofs, commitments,
-                           limb.ints_to_limbs_fast(publics, (B, 1)))
+                           limb.ints_to_limbs_fast(publics, (n, 1)))
 
 
 def _msm_inputs():
@@ -205,6 +214,13 @@ def _rank_job(dev):
         _verify(circuit, malformed, commitments, publics, m)
     except ProofError as exc:  # the raise is what the tests read
         out["malformed"] = str(exc)
+
+    m = meshes[UNEVEN_LAYOUT]
+    proofs, commitments, publics = _prove(circuit, None, mesh=m, n=UNEVEN_B)
+    rows = pmesh.bid_rows(m, UNEVEN_B)
+    out["uneven rows"] = (rows.start, rows.stop)
+    out["uneven proofs"] = [p.to_bytes() for p in proofs]
+    out["uneven honest"] = _verify(circuit, proofs, commitments, publics, m)
     return out
 
 
@@ -240,7 +256,8 @@ def _long_list_refusals(m) -> list[dict]:
 def _references() -> dict:
     """What the ranks' results are held to, computed in this process while
     the ranks run: mesh=None's proofs and commitments, the JAX host oracle's
-    proof and commitments of every place, the port's unsharded MSMs."""
+    proof and commitments of every place up to UNEVEN_B, the port's
+    unsharded MSMs."""
     from dusk_blindbidproof_tpu.models import r1cs as jr1cs
     from dusk_blindbidproof_tpu.utils import host_oracle as oracle
     from dusk_blindbidproof_tpu.utils.merlin import Transcript as JaxTranscript
@@ -250,7 +267,7 @@ def _references() -> dict:
     proofs, ref["plain commitments"], _ = _prove(circuit, "cpu")
     ref["plain proofs"] = [p.to_bytes() for p in proofs]
     ref["oracle"] = []
-    for i in range(B):
+    for i in range(UNEVEN_B):
         a, blind, a_L, a_R, a_O, out = _place(i)
         want, trace = oracle.host_prove(_artifact(jr1cs), JaxTranscript(LABEL), [a], [blind],
                                         a_L, a_R, a_O, [out], CAP)
@@ -403,6 +420,28 @@ def test_mesh_tampering_turns_its_own_place_only(ranks, i):
 
 def test_mesh_malformed_proof_raises_on_every_rank(ranks):
     assert all("non-canonical" in r["malformed"] for r in ranks[0])
+
+
+def test_mesh_uneven_batch_slices(ranks):
+    """B = 18 over 4 x 1: rows 0-4, 5-9, 10-13, 14-17, nothing padded."""
+    assert [r["uneven rows"] for r in ranks[0]] == [(0, 5), (5, 10), (10, 14), (14, 18)]
+
+
+@pytest.mark.parametrize("i", range(UNEVEN_B))
+def test_mesh_uneven_batch_proof_is_unsharded_proof(ranks, i):
+    """A proof depends on its own place's inputs alone, so the unsharded
+    proof at place i is the host oracle's for that place (equal to
+    mesh=None's for the places of the B = 5 case)."""
+    rank_out, ref = ranks
+    want = ref["oracle"][i][0]
+    if i < B:
+        assert ref["plain proofs"][i] == want
+    for r in rank_out:  # every rank returns the whole batch
+        assert r["uneven proofs"][i] == want
+
+
+def test_mesh_uneven_batch_verifies(ranks):
+    assert all(r["uneven honest"] == [True] * UNEVEN_B for r in ranks[0])
 
 
 def test_mesh_refuses_a_long_list_on_every_rank(ranks):

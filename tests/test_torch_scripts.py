@@ -9,7 +9,8 @@
   * scripts/record_session_torch.py: refuses to write into tests/data; with
     no --device it raises without a GPU; slow: --device cpu gives the frozen
     session bytes in its --out directory and leaves tests/data as it was;
-  * scripts/mesh_cards_torch.py (slow): 4 gloo ranks on the CPU at B = 4.
+  * scripts/mesh_cards_torch.py: an odd --ranks is refused; slow: 4 and 2
+    gloo ranks on the CPU at B = 4.
 
 Tolerance: none; exit codes, printed verdicts and bytes.
 """
@@ -93,8 +94,19 @@ def test_record_session_cpu_gives_frozen_bytes(tmp_path):
 
 
 @pytest.mark.slow
-def test_mesh_cards_script_on_cpu_ranks():
+@pytest.mark.parametrize("ranks, layouts", [(4, ("4x1", "2x2")), (2, ("2x1", "1x2"))])
+def test_mesh_cards_script_on_cpu_ranks(ranks, layouts):
     proc = _run([sys.executable, "scripts/mesh_cards_torch.py", "--device", "cpu",
-                 "--batch", "4", "--trips", "0"], 3600)
+                 "--ranks", str(ranks), "--batch", "4", "--trips", "0"], 3600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '"backend": "gloo"' in proc.stdout
+    assert f'"ranks": {ranks}' in proc.stdout
+    assert f"equal the unsharded ones at {layouts[0]} and {layouts[1]}" in proc.stdout
+    assert f"at 1x{ranks} equals the host sum" in proc.stdout
+
+
+def test_mesh_cards_script_refuses_an_odd_rank_count():
+    proc = _run([sys.executable, "scripts/mesh_cards_torch.py", "--device", "cpu",
+                 "--ranks", "3"], 120)
+    assert proc.returncode == 2
+    assert "--ranks takes an even number" in proc.stderr
