@@ -752,10 +752,10 @@ class LiveServer:
         service = BatchingService(device=dev)
         flush = service._flush
 
-        async def recording_flush(kind, q):
-            lens = tuple(sorted({len(item.pub_list) for item, _ in q}))
-            self.flushed.append((kind, len(q), lens))
-            await flush(kind, q)
+        async def recording_flush(key, q):
+            lens = tuple(sorted({len(item.pub_list) for item, *_ in q}))
+            self.flushed.append((key[0], len(q), lens))
+            await flush(key, q)
 
         service._flush = recording_flush
         self.server = BlindBidServer(path, service)

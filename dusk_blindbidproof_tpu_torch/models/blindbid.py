@@ -29,6 +29,7 @@ from ..ops import limb
 from ..parallel import mesh as pmesh
 from ..utils.curve_host import L, scalar_invert
 from ..utils.merlin import Transcript
+from ..utils.profiling import span
 from .bulletproofs import (
     CompiledCircuit,
     Prover,
@@ -199,86 +200,92 @@ def prove_batch(
     With a mesh, the blindings of the whole batch are rank 0's draws from its
     `rng` (B x m in batch order), broadcast, so every rank proves with the
     numbers one process would draw."""
-    if mesh is None:
-        device = resolve_device(device)  # first: without a GPU, no work
-    B = len(requests)
-    list_len = len(requests[0].pub_list)
-    if any(len(r.pub_list) != list_len for r in requests):
-        raise ValueError("batch must share list length")
-    circuit = _checked_circuit(list_len, device, mesh)
-    for r in requests:
-        if not 0 <= r.toggle < list_len:
-            raise ValueError("toggle out of range")
-    rng = rng or np.random.default_rng()
+    with span("app.prove_batch"):
+        if mesh is None:
+            device = resolve_device(device)  # first: without a GPU, no work
+        B = len(requests)
+        list_len = len(requests[0].pub_list)
+        if any(len(r.pub_list) != list_len for r in requests):
+            raise ValueError("batch must share list length")
+        with span("app.circuit"):
+            circuit = _checked_circuit(list_len, device, mesh)
+        for r in requests:
+            if not 0 <= r.toggle < list_len:
+                raise ValueError("toggle out of range")
+        rng = rng or np.random.default_rng()
 
-    transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
-    prover = Prover(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
+        transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
+        prover = Prover(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
 
-    m = circuit.m
-    values = [
-        [r.d, r.k, r.y, r.y_inv] + [1 if i == r.toggle else 0 for i in range(list_len)]
-        for r in requests
-    ]
-    blind_ints = None
-    if mesh is None or mesh.rank == 0:
-        blind_ints = [
-            [int.from_bytes(rng.bytes(32), "little") % L for _ in range(m)]
-            for _ in range(B)
+        m = circuit.m
+        values = [
+            [r.d, r.k, r.y, r.y_inv] + [1 if i == r.toggle else 0 for i in range(list_len)]
+            for r in requests
         ]
-    if mesh is not None:
-        blind_ints = pmesh.broadcast_object(mesh, blind_ints)
-    commitments = prover.commit_batch(values, blind_ints)
+        blind_ints = None
+        if mesh is None or mesh.rank == 0:
+            with span("app.blindings"):
+                blind_ints = [
+                    [int.from_bytes(rng.bytes(32), "little") % L for _ in range(m)]
+                    for _ in range(B)
+                ]
+        if mesh is not None:
+            blind_ints = pmesh.broadcast_object(mesh, blind_ints)
+        commitments = prover.commit_batch(values, blind_ints)
 
-    n_pad = circuit.n_pad
-    aL = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
-    aR = np.zeros_like(aL)
-    aO = np.zeros_like(aL)
-    for i in range(B)[prover.rows]:  # the rows the prover reads
-        l, rr, o = blindbid_witness(requests[i])
-        aL[i, : len(l)] = limb.ints_to_limbs_fast(l)
-        aR[i, : len(rr)] = limb.ints_to_limbs_fast(rr)
-        aO[i, : len(o)] = limb.ints_to_limbs_fast(o)
-
-    witness = ProverWitness(
-        a_L=aL,
-        a_R=aR,
-        a_O=aO,
-        v=limb.ints_to_limbs_fast([v % L for row in values for v in row], (B, m)),
-        v_blinding=limb.ints_to_limbs_fast([g for row in blind_ints for g in row], (B, m)),
-        publics=_publics_limbs(
-            [[r.q, r.z_img, r.seed] + list(r.pub_list) for r in requests]
-        ),
-    )
-    r1cs_proofs = prover.prove(circuit, witness, seed=seed)
-    return [
-        BlindBidProof(r1cs=p, commitments=commitments[i][:4], t_c=commitments[i][4:])
-        for i, p in enumerate(r1cs_proofs)
-    ]
+        n_pad = circuit.n_pad
+        rows = range(B)[prover.rows]  # the rows the prover reads
+        with span("app.witness"):
+            wires = [blindbid_witness(requests[i]) for i in rows]
+        with span("app.witness_limbs"):
+            aL = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
+            aR = np.zeros_like(aL)
+            aO = np.zeros_like(aL)
+            for i, (l, rr, o) in zip(rows, wires):
+                aL[i, : len(l)] = limb.ints_to_limbs_fast(l)
+                aR[i, : len(rr)] = limb.ints_to_limbs_fast(rr)
+                aO[i, : len(o)] = limb.ints_to_limbs_fast(o)
+            v = limb.ints_to_limbs_fast([v % L for row in values for v in row], (B, m))
+            v_blinding = limb.ints_to_limbs_fast([g for row in blind_ints for g in row], (B, m))
+        with span("app.publics"):
+            publics = _publics_limbs(
+                [[r.q, r.z_img, r.seed] + list(r.pub_list) for r in requests]
+            )
+        witness = ProverWitness(a_L=aL, a_R=aR, a_O=aO, v=v, v_blinding=v_blinding,
+                                publics=publics)
+        r1cs_proofs = prover.prove(circuit, witness, seed=seed)
+        return [
+            BlindBidProof(r1cs=p, commitments=commitments[i][:4], t_c=commitments[i][4:])
+            for i, p in enumerate(r1cs_proofs)
+        ]
 
 
 def verify_batch(requests: list[VerifyRequest], device=None, mesh=None) -> list[bool]:
     """Verify a batch of same-shape requests (`mesh`: see prove_batch)."""
-    if mesh is None:
-        device = resolve_device(device)  # first: without a GPU, no work
-    B = len(requests)
-    list_len = len(requests[0].pub_list)
-    if any(len(r.pub_list) != list_len for r in requests):
-        raise ValueError("batch must share list length")
-    circuit = _checked_circuit(list_len, device, mesh)
+    with span("app.verify_batch"):
+        if mesh is None:
+            device = resolve_device(device)  # first: without a GPU, no work
+        B = len(requests)
+        list_len = len(requests[0].pub_list)
+        if any(len(r.pub_list) != list_len for r in requests):
+            raise ValueError("batch must share list length")
+        with span("app.circuit"):
+            circuit = _checked_circuit(list_len, device, mesh)
 
-    transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
-    verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
-    commitments = [r.proof.commitments + r.proof.t_c for r in requests]
-    for row in commitments:
-        if len(row) != 4 + list_len:
-            raise ValueError("commitment count does not match list length")
-    verifier.commit_batch(commitments)
-    publics = _publics_limbs(
-        [[r.score, r.z_img, r.seed] + list(r.pub_list) for r in requests]
-    )
-    return verifier.verify(
-        circuit, [r.proof.r1cs for r in requests], commitments, publics
-    )
+        transcripts = [Transcript(TRANSCRIPT_LABEL) for _ in range(B)]
+        verifier = Verifier(transcripts, cap=GENS_CAPACITY, device=device, mesh=mesh)
+        commitments = [r.proof.commitments + r.proof.t_c for r in requests]
+        for row in commitments:
+            if len(row) != 4 + list_len:
+                raise ValueError("commitment count does not match list length")
+        verifier.commit_batch(commitments)
+        with span("app.publics"):
+            publics = _publics_limbs(
+                [[r.score, r.z_img, r.seed] + list(r.pub_list) for r in requests]
+            )
+        return verifier.verify(
+            circuit, [r.proof.r1cs for r in requests], commitments, publics
+        )
 
 
 def proof_blob(proof: BlindBidProof) -> bytes:

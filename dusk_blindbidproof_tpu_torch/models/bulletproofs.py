@@ -83,11 +83,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _dev(arr, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(arr, dtype=np.int32)).to(device)
+    """Host int32 array -> tensor on `device`: a copy from pageable memory,
+    which holds the host until the stream has drained up to it."""
+    with span("device.h2d"):
+        return torch.from_numpy(np.array(arr, dtype=np.int32)).to(device)
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+    """The host's blocking read of a device result."""
+    with span("device.d2h"):
+        return x.cpu().numpy()
 
 
 def _compress_host(arr: np.ndarray) -> list[bytes]:
@@ -96,9 +101,10 @@ def _compress_host(arr: np.ndarray) -> list[bytes]:
     host integers: at phase-output widths (a handful of points per proof)
     this beats the device chain's ~265 sequential tiny-width steps."""
     out = []
-    for row in np.asarray(arr).reshape(-1, 4, NLIMBS):
-        pt = chost.EdwardsPoint(*[limb.limbs_to_int(c) for c in row])
-        out.append(chost.ristretto_compress(pt))
+    with span("host.compress"):
+        for row in np.asarray(arr).reshape(-1, 4, NLIMBS):
+            pt = chost.EdwardsPoint(*[limb.limbs_to_int(c) for c in row])
+            out.append(chost.ristretto_compress(pt))
     return out
 
 
@@ -548,15 +554,17 @@ class Prover(_MeshRows):
         rows, of which a rank of a mesh reads its own alone.  A circuit larger
         than the capacity raises ProofError before any work (on every rank of
         a mesh alike, with no collective)."""
-        check_capacity(circuit.n_pad, self.cap)
-        if self.mesh is None:
-            return self._prove_rows(circuit, witness, seed)
-        local = []
-        if self.transcripts:
-            rows = ProverWitness(*(getattr(witness, f.name)[self.rows]
-                                   for f in fields(ProverWitness)))
-            local = self._prove_rows(circuit, rows, seed)
-        return [R1CSProof.from_bytes(b) for b in self._gather([p.to_bytes() for p in local])]
+        with span("prove"):
+            check_capacity(circuit.n_pad, self.cap)
+            if self.mesh is None:
+                return self._prove_rows(circuit, witness, seed)
+            local = []
+            if self.transcripts:
+                rows = ProverWitness(*(getattr(witness, f.name)[self.rows]
+                                       for f in fields(ProverWitness)))
+                local = self._prove_rows(circuit, rows, seed)
+            return [R1CSProof.from_bytes(b)
+                    for b in self._gather([p.to_bytes() for p in local])]
 
     def _prove_rows(self, circuit: CompiledCircuit, witness: ProverWitness,
                     seed: bytes) -> list[R1CSProof]:
@@ -572,21 +580,23 @@ class Prover(_MeshRows):
         # TranscriptRng seeds a numpy generator per proof)
         with span("prove.host_rng"):
             rngs = []
-            for i, t in enumerate(ts):
-                builder = t.build_rng()
-                for j in range(circuit.m):
-                    builder = builder.rekey_with_witness_bytes(
-                        b"v_blinding",
-                        bytes(limb.limbs_to_bytes_le(witness.v_blinding[i, j])),
-                    )
-                rngs.append(np.random.default_rng(
-                    list(builder.finalize(seed).fill_bytes(32))
-                ))
-            i_blind = np.stack([_sample_scalar_limbs(r, (3,)) for r in rngs])
-            s_L = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
-            s_R = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
-            s_L[:, n1:] = 0
-            s_R[:, n1:] = 0
+            with span("prove.host_rng.transcript"):
+                for i, t in enumerate(ts):
+                    builder = t.build_rng()
+                    for j in range(circuit.m):
+                        builder = builder.rekey_with_witness_bytes(
+                            b"v_blinding",
+                            bytes(limb.limbs_to_bytes_le(witness.v_blinding[i, j])),
+                        )
+                    rngs.append(np.random.default_rng(
+                        list(builder.finalize(seed).fill_bytes(32))
+                    ))
+            with span("prove.host_rng.draw"):
+                i_blind = np.stack([_sample_scalar_limbs(r, (3,)) for r in rngs])
+                s_L = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
+                s_R = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
+                s_L[:, n1:] = 0
+                s_R[:, n1:] = 0
 
         a_L, a_R, a_O = (_dev(x, dev) for x in (witness.a_L, witness.a_R, witness.a_O))
         s_L, s_R = _dev(s_L, dev), _dev(s_R, dev)
@@ -855,22 +865,23 @@ class Verifier(_MeshRows):
         canonical public-input limbs.  A malformed proof raises ProofError
         for the whole batch, on every rank of a mesh; so does a circuit
         larger than the capacity, before any work."""
-        check_capacity(circuit.n_pad, self.cap)
-        if self.mesh is None:
-            return self._verify_rows(circuit, proofs, commitments, publics)
-        local = []
-        if self.transcripts:
-            try:
-                local = self._verify_rows(circuit, proofs[self.rows], commitments[self.rows],
-                                          publics[self.rows])
-            except ProofError as exc:
-                # the batch's answer, as without a mesh: every rank raises it below
-                local = [str(exc)]
-        out = self._gather(local)
-        for v in out:
-            if isinstance(v, str):
-                raise ProofError(v)
-        return out
+        with span("verify"):
+            check_capacity(circuit.n_pad, self.cap)
+            if self.mesh is None:
+                return self._verify_rows(circuit, proofs, commitments, publics)
+            local = []
+            if self.transcripts:
+                try:
+                    local = self._verify_rows(circuit, proofs[self.rows],
+                                              commitments[self.rows], publics[self.rows])
+                except ProofError as exc:
+                    # the batch's answer, as without a mesh: every rank raises it below
+                    local = [str(exc)]
+            out = self._gather(local)
+            for v in out:
+                if isinstance(v, str):
+                    raise ProofError(v)
+            return out
 
     def _verify_rows(self, circuit: CompiledCircuit, proofs: list[R1CSProof],
                      commitments: list[list[bytes]], publics: np.ndarray) -> list[bool]:

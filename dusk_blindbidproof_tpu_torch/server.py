@@ -42,10 +42,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import functools
+import itertools
 import logging
 import os
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -60,6 +61,7 @@ from .models.proof_struct import BlindBidProof, R1CSProof
 from .models.transcript_protocol import ProofError
 from .ops import fused
 from .utils.curve_host import L
+from .utils.profiling import span
 from .utils.tlv import TlvReader, TlvWriter
 
 log = logging.getLogger("blindbid.server")
@@ -142,7 +144,14 @@ class BatchingService:
     A batch is flushed `window_ms` after its first request, or at once when
     it holds `max_batch` requests, so more than `max_batch` at a time split.
     All of its methods but `start` and `close` run on the event loop; the
-    passes run on one worker thread."""
+    passes run on one worker thread.
+
+    Each request gets an id (1, 2, ... in the order submitted) and its
+    arrival time.  Each pass runs under the span `server.pass` and logs one
+    DEBUG line on `blindbid.server`: its kind, list length, batch size,
+    request ids, the oldest and newest request's queue wait (arrival to the
+    pass's start on the worker thread), the pass's seconds, and the span's
+    pass id while spans are on (utils/profiling.py)."""
 
     def __init__(self, window_ms: float = 5.0, max_batch: int = 16, device=None):
         self.window = window_ms / 1000.0
@@ -150,6 +159,7 @@ class BatchingService:
         self.device = device
         self._queues: dict = {}
         self._tasks: set = set()
+        self._ids = itertools.count(1)
         self._executor: ThreadPoolExecutor | None = None
 
     def start(self) -> None:
@@ -190,33 +200,48 @@ class BatchingService:
         if q is None:
             q = self._queues[key] = []
             self._spawn(self._flush_later(key, q))
-        q.append((item, fut))
+        q.append((item, fut, next(self._ids), time.perf_counter()))
         if len(q) >= self.max_batch:
             del self._queues[key]
-            self._spawn(self._flush(kind, q))
+            self._spawn(self._flush(key, q))
         return await fut
 
     async def _flush_later(self, key, q) -> None:
         await asyncio.sleep(self.window)
         if self._queues.get(key) is q:  # not flushed full in the meantime
             del self._queues[key]
-            await self._flush(key[0], q)
+            await self._flush(key, q)
 
-    async def _flush(self, kind: str, q) -> None:
-        items = [item for item, _ in q]
-        run = blindbid.prove_batch if kind == "prove" else blindbid.verify_batch
+    async def _flush(self, key, q) -> None:
         try:
             results = await asyncio.get_running_loop().run_in_executor(
-                self._executor, functools.partial(run, items, device=self.device)
-            )
+                self._executor, self._pass, key, q)
         except Exception as exc:  # every waiter of the batch learns of it
-            for _, fut in q:
+            for _, fut, _, _ in q:
                 if not fut.done():
                     fut.set_exception(exc)
             return
-        for (_, fut), res in zip(q, results):
+        for (_, fut, _, _), res in zip(q, results):
             if not fut.done():
                 fut.set_result(res)
+
+    def _pass(self, key, q) -> list:
+        """One device pass over the queued requests (on the worker thread)."""
+        kind, shape = key
+        run = blindbid.prove_batch if kind == "prove" else blindbid.verify_batch
+        pass_span = span("server.pass")
+        start = time.perf_counter()
+        try:
+            with pass_span:
+                return run([item for item, _, _, _ in q], device=self.device)
+        finally:
+            if log.isEnabledFor(logging.DEBUG):
+                waits = [(start - t) * 1e3 for _, _, _, t in q]
+                log.debug("pass %s %s: list length %d, batch %d, requests %s, queue wait "
+                          "%.3f to %.3f ms, %.6f s", pass_span.pass_id, kind,
+                          shape[0] if isinstance(shape, tuple) else shape, len(q),
+                          [rid for _, _, rid, _ in q], max(waits), min(waits),
+                          time.perf_counter() - start)
 
 
 class BlindBidServer:

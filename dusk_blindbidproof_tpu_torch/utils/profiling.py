@@ -1,26 +1,132 @@
-"""Lightweight per-phase wall-clock profiling (SURVEY.md §5 tracing row).
+"""Spans of the port's layers, kept in memory; off unless `enable()` is called.
 
-The reference has no tracing beyond dispatch logs
-(/root/reference/src/futures/main.rs:31,35); profiling was external.  Here
-the prover/verifier wrap each phase in `span(name)`: a no-op unless enabled
-via BLINDBID_PROFILE=1 (or `enable()`), in which case wall time per span is
-accumulated into a global table, printable with `report()`.
+The reference daemon has no tracing beyond its dispatch logs
+(dusk-blindbidproof, src/futures/main.rs:31,35).  Here each layer wraps its
+steps in `span(name)`:
 
-Phase boundaries in the engine are host-synchronized (transcript challenges
-need device bytes on host), so wall-clock between boundaries is an honest
-device+host split — spans do not add extra synchronization.
+  * off (the default), `span` returns one shared no-op context: nothing is
+    made and nothing recorded;
+  * on (`enable()`), a span pushes itself on its thread's stack and, when it
+    closes, appends a `Span` record (index, name, start_ns, end_ns, parent,
+    pass_id, thread) to a bounded buffer.  Clocks are
+    `time.perf_counter_ns()`.  `index` numbers the spans in the order they
+    opened; `parent` is the index of the innermost span open on the same
+    thread when it opened (None at the top); a span opened on an empty stack
+    starts a new `pass_id`, which its children inherit.  Once the buffer
+    holds `CAPACITY` records the oldest go, counted by `dropped()`;
+  * on, while a torch.profiler runs on the span's thread, the span is also a
+    `torch.profiler.record_function` range of its name: it lands in the
+    trace on the device trace's clock, and an idle gap of the card can be
+    put down to the program's own innermost span.  Without a profiler the
+    range is not made (it would cost some 15 us a span and record nothing).
+
+Per name, the totals (`totals()`), the counts and the self times
+(`self_times()`: the span's duration less the part its children cover) are
+summed as spans close, so they never drop.  `records()` returns the buffer,
+`report()` a table by total, and `reset()` clears all of it.
+
+Spans do not synchronise the device: a span around device work times the
+host's enqueue, and the host's blocking copies are spans of their own
+(`device.h2d`, `device.d2h` in models/bulletproofs.py).
 """
 
 from __future__ import annotations
 
-import os
+import itertools
+import threading
 import time
-from collections import defaultdict
-from contextlib import contextmanager
+from collections import defaultdict, deque
+from typing import NamedTuple
 
-_ENABLED = os.environ.get("BLINDBID_PROFILE", "0") == "1"
-_TOTALS: dict[str, float] = defaultdict(float)
+import torch
+
+CAPACITY = 1 << 16  # records kept; a prove and verify of 256 bids makes about 3,800
+
+
+class Span(NamedTuple):
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    pass_id: int
+    thread: int
+
+
+class _Off:
+    """The context `span` returns while spans are off."""
+
+    __slots__ = ()
+    index = pass_id = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_ENABLED = False
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
+_INDEX = itertools.count()
+_PASS = itertools.count()
+_RECORDS: deque = deque(maxlen=CAPACITY)
+_DROPPED = 0
+_TOTALS: dict[str, int] = defaultdict(int)  # ns
+_SELF: dict[str, int] = defaultdict(int)  # ns
 _COUNTS: dict[str, int] = defaultdict(int)
+
+
+class _On:
+    __slots__ = ("name", "index", "parent", "pass_id", "start", "child_ns", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack is None:
+            stack = _LOCAL.stack = []
+        self.index = next(_INDEX)
+        if stack:
+            outer = stack[-1]
+            self.parent, self.pass_id = outer.index, outer.pass_id
+        else:
+            self.parent, self.pass_id = None, next(_PASS)
+        self.child_ns = 0
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        end = time.perf_counter_ns()
+        stack = _LOCAL.stack
+        stack.pop()
+        dur = end - self.start
+        if stack:
+            stack[-1].child_ns += dur
+        _close(Span(self.index, self.name, self.start, end, self.parent, self.pass_id,
+                    threading.get_ident()), dur - self.child_ns)
+        return False
+
+
+def _close(rec: Span, self_ns: int) -> None:
+    global _DROPPED
+    with _LOCK:
+        if len(_RECORDS) == _RECORDS.maxlen:
+            _DROPPED += 1
+        _RECORDS.append(rec)
+        _TOTALS[rec.name] += rec.end_ns - rec.start_ns
+        _SELF[rec.name] += self_ns
+        _COUNTS[rec.name] += 1
 
 
 def enable(on: bool = True) -> None:
@@ -29,34 +135,51 @@ def enable(on: bool = True) -> None:
 
 
 def reset() -> None:
-    _TOTALS.clear()
-    _COUNTS.clear()
+    global _DROPPED
+    with _LOCK:
+        _RECORDS.clear()
+        _DROPPED = 0
+        _TOTALS.clear()
+        _SELF.clear()
+        _COUNTS.clear()
 
 
-@contextmanager
 def span(name: str):
-    if not _ENABLED:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _TOTALS[name] += time.perf_counter() - t0
-        _COUNTS[name] += 1
+    """A context that records one span of `name` while spans are on."""
+    return _On(name) if _ENABLED else _OFF
+
+
+def records() -> list[Span]:
+    with _LOCK:
+        return list(_RECORDS)
+
+
+def dropped() -> int:
+    return _DROPPED
 
 
 def totals() -> dict[str, float]:
-    return dict(_TOTALS)
+    """Seconds by name, each span's whole duration."""
+    with _LOCK:
+        return {k: v / 1e9 for k, v in _TOTALS.items()}
+
+
+def self_times() -> dict[str, float]:
+    """Seconds by name, each span's duration less its children's."""
+    with _LOCK:
+        return {k: v / 1e9 for k, v in _SELF.items()}
 
 
 def report() -> str:
+    """One line a name, by total: total and self ms, count, and the self
+    time's share of all self time (the spans' covered wall)."""
+    tot, own = totals(), self_times()
+    wall = sum(own.values())
     lines = []
-    total = sum(_TOTALS.values())
-    for name, t in sorted(_TOTALS.items(), key=lambda kv: -kv[1]):
+    for name, t in sorted(tot.items(), key=lambda kv: -kv[1]):
         lines.append(
-            f"{name:28s} {t * 1e3:9.1f} ms  x{_COUNTS[name]:<4d}"
-            f" {100 * t / total:5.1f}%"
+            f"{name:28s} {t * 1e3:9.1f} ms  self {own[name] * 1e3:9.1f} ms"
+            f"  x{_COUNTS[name]:<4d} {100 * own[name] / wall if wall else 0.0:5.1f}%"
         )
-    lines.append(f"{'TOTAL':28s} {total * 1e3:9.1f} ms")
+    lines.append(f"{'TOTAL':28s} {wall * 1e3:9.1f} ms")
     return "\n".join(lines)

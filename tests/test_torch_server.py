@@ -12,7 +12,9 @@ end run the whole slice at n = 2048 on the CPU against the recorded bytes.
 import asyncio
 import importlib.util
 import io
+import logging
 import os
+import re
 import socket
 import tempfile
 import threading
@@ -35,7 +37,7 @@ from dusk_blindbidproof_tpu_torch.models.transcript_protocol import (
     ProofError,
 )
 from dusk_blindbidproof_tpu_torch.ops import fused, limb
-from dusk_blindbidproof_tpu_torch.utils import curve_host
+from dusk_blindbidproof_tpu_torch.utils import curve_host, profiling
 from dusk_blindbidproof_tpu_torch.utils.curve_host import L
 from dusk_blindbidproof_tpu_torch.utils.tlv import (
     TlvReader,
@@ -638,6 +640,34 @@ def test_batching_window_opens_again_after_a_flush(passes):
         service.close()
     assert [items for _, items, _, _ in passes] == [[0, 1, 2], [3, 4]]
     assert len(first) == 3 and len(second) == 2
+
+
+def test_a_pass_logs_its_requests_and_runs_under_a_span(passes, caplog):
+    """Three requests inside one window: one pass under `server.pass`, and
+    one DEBUG line with its kind, list length, batch size, request ids,
+    queue waits (the first request waited the window) and seconds."""
+    caplog.set_level(logging.DEBUG, logger="blindbid.server")
+    service = srv.BatchingService(window_ms=50.0, device="cpu")
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        _submit_all(service, [("prove", 4, f"req{i}") for i in range(3)])
+        spans = [r for r in profiling.records() if r.name == "server.pass"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert [items for _, items, _, _ in passes] == [["req0", "req1", "req2"]]
+    lines = [r.getMessage() for r in caplog.records
+             if r.name == "blindbid.server" and r.levelno == logging.DEBUG]
+    assert len(lines) == 1
+    m = re.fullmatch(r"pass (\d+) prove: list length 4, batch 3, requests \[1, 2, 3\], "
+                     r"queue wait ([\d.]+) to ([\d.]+) ms, ([\d.]+) s", lines[0])
+    assert m, lines[0]
+    oldest, newest, seconds = (float(g) for g in m.groups()[1:])
+    assert oldest >= newest >= 0.0 and oldest >= 40.0
+    assert len(spans) == 1 and spans[0].pass_id == int(m.group(1))
+    assert spans[0].parent is None
+    assert seconds >= (spans[0].end_ns - spans[0].start_ns) / 1e9
 
 
 def test_batching_needs_start():
