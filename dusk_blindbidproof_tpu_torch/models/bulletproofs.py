@@ -295,13 +295,18 @@ class ProverWitness:
     publics: np.ndarray  # [B, n_pub, NLIMBS]
 
 
-def _sample_scalar_limbs(rng: np.random.Generator, shape) -> np.ndarray:
-    """Uniform scalars in [0, 2^252) as canonical limbs (blinding factors)."""
+def _sample_scalar_bytes(rng: np.random.Generator, shape) -> np.ndarray:
+    """Uniform scalars in [0, 2^252) as [..., 32] little-endian bytes."""
     raw = np.frombuffer(
         rng.bytes(int(np.prod(shape)) * 32), dtype=np.uint8
     ).reshape(*shape, 32).copy()
     raw[..., 31] &= 0x0F  # keep 252 bits
-    return limb.limbs_from_bytes_le(raw)
+    return raw
+
+
+def _sample_scalar_limbs(rng: np.random.Generator, shape) -> np.ndarray:
+    """Uniform scalars in [0, 2^252) as canonical limbs (blinding factors)."""
+    return limb.limbs_from_bytes_le(_sample_scalar_bytes(rng, shape))
 
 
 def _sample_int(rng: np.random.Generator) -> int:
@@ -592,14 +597,18 @@ class Prover(_MeshRows):
                         list(builder.finalize(seed).fill_bytes(32))
                     ))
             with span("prove.host_rng.draw"):
+                # s_L and s_R stay bytes: they cross as [B, n_pad, 8] words
+                # and become limbs on the device
                 i_blind = np.stack([_sample_scalar_limbs(r, (3,)) for r in rngs])
-                s_L = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
-                s_R = np.stack([_sample_scalar_limbs(r, (n_pad,)) for r in rngs])
-                s_L[:, n1:] = 0
-                s_R[:, n1:] = 0
+                s_bytes = np.empty((2, B, n_pad, 32), dtype=np.uint8)
+                for s in s_bytes:  # s_L, then s_R
+                    for i, r in enumerate(rngs):
+                        s[i] = _sample_scalar_bytes(r, (n_pad,))
+                s_bytes[:, :, n1:] = 0
+                s_words = s_bytes.view("<i4")  # [2, B, n_pad, 8]
 
         a_L, a_R, a_O = (_dev(x, dev) for x in (witness.a_L, witness.a_R, witness.a_O))
-        s_L, s_R = _dev(s_L, dev), _dev(s_R, dev)
+        s_L, s_R = limb.limbs_from_words(_dev(s_words, dev))
 
         with span("prove.phase_a"):
             comp_a = _host(phase_a(self.tables, a_L, a_R, a_O, s_L, s_R,

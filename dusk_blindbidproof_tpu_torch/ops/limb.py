@@ -711,6 +711,26 @@ def limbs_from_bytes_le(data: np.ndarray) -> np.ndarray:
     return (bits.astype(np.int32) * weights).sum(axis=-1, dtype=np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _word_split(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per limb j: the index q of the 64-bit word pair that holds its bits
+    (words q and q + 1) and its shift r in the pair, 13 j = 32 q + r."""
+    starts = LIMB_BITS * np.arange(NLIMBS)
+    return (torch.from_numpy(starts // 32).to(device),
+            torch.from_numpy(starts % 32).to(device))
+
+
+def limbs_from_words(words: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int32 little-endian words (the bytes of a value < 2^256,
+    viewed as '<i4') -> [..., NLIMBS] int32 strict limbs, on the words'
+    device: `limbs_from_bytes_le` of the same bytes, in a fixed handful of
+    launches."""
+    q, r = _word_split(words.device)
+    w = F.pad(words.to(torch.int64) & 0xFFFFFFFF, (0, 2))  # no sign bit; 10 words
+    pairs = w[..., :-1] | (w[..., 1:] << 32)  # words k and k + 1, k < 9
+    return ((pairs[..., q] >> r) & LIMB_MASK).to(torch.int32)
+
+
 def ints_to_limbs_fast(vals, out_shape=None) -> np.ndarray:
     """Vectorized python-ints (< 2^256) -> limb rows via byte packing."""
     buf = b"".join(int(v).to_bytes(32, "little") for v in vals)

@@ -8,7 +8,14 @@ of a batch must be the proof its place alone would give (the bytes of the JAX
 package's host oracle), be accepted by the JAX package's `host_verify` and by
 the port's `Verifier` at the same B, and a tampered proof must turn the
 verdict of its own place only.  Tolerance: none, bytes and booleans.
+
+On the squaring chain at n = 1024, B = 2, the prover's blinding draws reach
+phase A as the host's limbs, in the draw order and zero past n1, though they
+cross to the device as words.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +25,7 @@ from dusk_blindbidproof_tpu.models import r1cs as jr1cs
 from dusk_blindbidproof_tpu.models.proof_struct import R1CSProof as JaxR1CSProof
 from dusk_blindbidproof_tpu.utils import host_oracle as oracle
 from dusk_blindbidproof_tpu.utils.merlin import Transcript as JaxTranscript
+from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp
 from dusk_blindbidproof_tpu_torch.models import r1cs as tr1cs
 from dusk_blindbidproof_tpu_torch.models.bulletproofs import (
     CompiledCircuit,
@@ -31,6 +39,8 @@ from dusk_blindbidproof_tpu_torch.utils.curve_host import L
 from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
 
 CAP = 32
 GATES = 20
@@ -154,3 +164,53 @@ def test_batch_accepted_by_the_port_verifier(verdicts, B):
 @pytest.mark.parametrize("B, i", PLACES)
 def test_tampering_turns_the_verdict_of_its_place_only(verdicts, B, i):
     assert verdicts[B][1][i] == (i not in TAMPERED[B])
+
+
+def test_phase_a_receives_the_host_draws(monkeypatch):
+    """On the squaring chain at n = 1024, B = 2: the blindings i_blind, s_L
+    and s_R that phase A receives are `_sample_scalar_limbs` of each proof's
+    rng, forked here as the prover forks it and drawn in the prover's order,
+    with s_L and s_R zero past n1 (n1 = 1023).  The draws cross to the device
+    as words; the limbs are the host conversion's."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    n, B, seed = 1 << 10, 2, bytes(range(32))
+    artifact, *wit = chip_smoke.chain_inputs(n)
+    circuit = CompiledCircuit.compile(artifact, torch.device("cpu"))
+    assert circuit.n1 == n - 1 and circuit.n_pad == n
+    witness = chip_smoke.chain_witness(n, B, *wit)
+    witness.v_blinding[1] = _limbs([8], (1,))  # each proof an rng of its own
+    # phase A and all after it never run: no generator tables
+    monkeypatch.setattr(bp, "generator_tables", lambda cap, device: None)
+    prover = Prover([Transcript(LABEL) for _ in range(B)], cap=n, device="cpu")
+
+    rngs = []
+    for i, t in enumerate(prover.transcripts):
+        t = t.clone()
+        t.append_u64(b"m", circuit.m)
+        builder = t.build_rng().rekey_with_witness_bytes(
+            b"v_blinding", bytes(limb.limbs_to_bytes_le(witness.v_blinding[i, 0])))
+        rngs.append(np.random.default_rng(list(builder.finalize(seed).fill_bytes(32))))
+    want = {k: np.stack([bp._sample_scalar_limbs(r, shape) for r in rngs])
+            for k, shape in (("blinds", (3,)), ("s_L", (n,)), ("s_R", (n,)))}
+    want["s_L"][:, circuit.n1:] = want["s_R"][:, circuit.n1:] = 0
+
+    seen = {}
+
+    class Reached(Exception):
+        pass
+
+    def phase_a(tables, a_L, a_R, a_O, s_L, s_R, blinds):
+        seen.update(s_L=s_L, s_R=s_R, blinds=blinds)
+        raise Reached
+
+    monkeypatch.setattr(bp, "phase_a", phase_a)
+    with pytest.raises(Reached):
+        prover.prove(circuit, witness, seed=seed)
+    assert (want["s_L"][0] != want["s_L"][1]).any()
+    for k, v in want.items():
+        got = seen[k]
+        assert got.dtype == torch.int32 and tuple(got.shape) == v.shape, k
+        assert (got.numpy() == v).all(), k

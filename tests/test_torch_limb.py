@@ -93,3 +93,38 @@ def test_byte_conversions_roundtrip():
     assert tl.limbs_to_ints(limbs) == vals
     back = tl.limbs_to_bytes_le(limbs)
     assert [int.from_bytes(r.tobytes(), "little") for r in back] == vals
+
+
+def _word_cases():
+    """{name: [..., 32] uint8 little-endian values < 2^256}."""
+    rng = np.random.default_rng(18)
+
+    def draw(*shape):
+        return np.frombuffer(rng.bytes(int(np.prod(shape)) * 32),
+                             dtype=np.uint8).reshape(*shape, 32).copy()
+
+    ff = np.full((4, 32), 0xFF, dtype=np.uint8)
+    ff[:, 31] &= 0x0F  # the blindings' 252-bit mask
+    top = draw(64)
+    top[:, 3::4] |= 0x80  # every 32-bit word negative as int32
+    bits = [b for j in range(1, tl.NLIMBS) for b in (13 * j - 1, 13 * j) if b < 256]
+    edges = np.zeros((len(bits), 32), dtype=np.uint8)
+    for row, b in zip(edges, bits):
+        row[b // 8] = 1 << (b % 8)
+    padded = draw(2, 16)
+    padded[:, 12:] = 0  # rows past n1, zeroed on the host
+    return {"zero": np.zeros((4, 32), dtype=np.uint8), "ff_252": ff, "top_bits": top,
+            "limb_edges": edges, "random_4096": draw(4096), "batched": draw(4, 64),
+            "padded": padded}
+
+
+WORD_CASES = _word_cases()
+
+
+@pytest.mark.parametrize("name", list(WORD_CASES))
+def test_limbs_from_words_equals_limbs_from_bytes(name):
+    data = WORD_CASES[name]
+    got = tl.limbs_from_words(torch.from_numpy(data.view("<i4")))
+    want = tl.limbs_from_bytes_le(data)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    assert (got.numpy() == want).all()
