@@ -19,7 +19,11 @@ order of the JAX grid.
 
 Collectives move int32 limb tensors (`dist.all_gather`) and pickled bytes
 (`all_gather_object`, `broadcast_object_list`).  A rank whose slice is empty
-still joins every collective.
+still joins every collective.  With spans on (`utils.profiling`), the bids
+axis's collectives are spans of their own, `mesh.gather` (`gather_rows`) and
+`mesh.broadcast` (`broadcast_object`), children of the spans open around
+them: a collective's time, its wait for the slowest rank included, leaves
+its caller's self time.
 
 `spawn` starts the ranks: the `spawn` start method (the parent may hold a
 CUDA context), rendezvous through a FileStore in a temporary directory (no
@@ -44,6 +48,7 @@ import torch.multiprocessing as mp
 
 from ..ops import edwards, fused, limb, msm
 from ..ops.limb import NLIMBS
+from ..utils.profiling import span
 
 SPAWN_TIMEOUT = 1800.0  # s, for the whole job and for every collective in it
 
@@ -151,29 +156,31 @@ def shard_batch_over_bids(mesh: Mesh, x):
 def gather_rows(mesh: Mesh, local):
     """This rank's rows (a list, or a [b, ...] tensor) -> the full batch's, in
     batch order, on every rank: gathered over the bids axis."""
-    if isinstance(local, torch.Tensor):
+    with span("mesh.gather"):
+        if isinstance(local, torch.Tensor):
+            if mesh.bids_group is None:
+                return local
+            # all_gather takes equal shapes: pad to the longest slice, then trim
+            counts = [None] * mesh.bids
+            dist.all_gather_object(counts, local.shape[0], group=mesh.bids_group)
+            pad = max(counts) - local.shape[0]
+            if pad:
+                local = torch.cat([local, local.new_zeros((pad, *local.shape[1:]))])
+            parts = _all_gather(local, mesh.bids_group, mesh.bids)
+            return torch.cat([part[:c] for part, c in zip(parts, counts)])
         if mesh.bids_group is None:
-            return local
-        # all_gather takes equal shapes: pad to the longest slice, then trim
-        counts = [None] * mesh.bids
-        dist.all_gather_object(counts, local.shape[0], group=mesh.bids_group)
-        pad = max(counts) - local.shape[0]
-        if pad:
-            local = torch.cat([local, local.new_zeros((pad, *local.shape[1:]))])
-        parts = _all_gather(local, mesh.bids_group, mesh.bids)
-        return torch.cat([part[:c] for part, c in zip(parts, counts)])
-    if mesh.bids_group is None:
-        return list(local)
-    parts = [None] * mesh.bids
-    dist.all_gather_object(parts, list(local), group=mesh.bids_group)
-    return [row for part in parts for row in part]
+            return list(local)
+        parts = [None] * mesh.bids
+        dist.all_gather_object(parts, list(local), group=mesh.bids_group)
+        return [row for part in parts for row in part]
 
 
 def broadcast_object(mesh: Mesh, obj):
     """Rank 0's `obj` on every rank of the mesh (the whole world)."""
-    box = [obj if mesh.rank == 0 else None]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
+    with span("mesh.broadcast"):
+        box = [obj if mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
 
 def _all_gather(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:

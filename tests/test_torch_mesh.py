@@ -23,7 +23,11 @@ share of every case, and the tests read what the ranks returned:
     mesh=None's), and the batch verifies;
   * `prove_batch` / `verify_batch(mesh=)` at 20,000 bids: refused with
     ProofError from the list's length on every rank, nothing synthesized,
-    and every rank goes on to the next collective.
+    and every rank goes on to the next collective;
+  * the collectives' spans, with spans on: every rank records `mesh.gather`
+    under `prove` and `verify` (the B = 5 case), and `mesh.broadcast` and
+    `mesh.gather` under `app.prove_batch` (`prove_batch` at list length 4,
+    a bid a rank over 4 x 1, with tests/cheap_msms.py's tables and MSMs).
 
 The slow cases run `prove_batch` / `verify_batch` at n = 2048 over bids 4
 against mesh=None, and `sharded_msm` against the JAX package's sharded MSM on
@@ -32,6 +36,8 @@ values and booleans are compared.
 """
 
 import threading
+from collections import defaultdict
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -50,6 +56,7 @@ from dusk_blindbidproof_tpu_torch.models.transcript_protocol import ProofError
 from dusk_blindbidproof_tpu_torch.ops import edwards, limb, msm
 from dusk_blindbidproof_tpu_torch.parallel import mesh as pmesh
 from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+from dusk_blindbidproof_tpu_torch.utils import profiling
 from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript
 
 torch.set_num_threads(1)
@@ -196,10 +203,12 @@ def _rank_job(dev):
 
     m = meshes[PROVER_LAYOUT]
     circuit = CompiledCircuit.compile(_artifact(tr1cs), dev)
-    proofs, commitments, publics = _prove(circuit, None, mesh=m)
+    with _spans_on():
+        proofs, commitments, publics = _prove(circuit, None, mesh=m)
+        out["honest"] = _verify(circuit, proofs, commitments, publics, m)
+        out["prover spans"] = _mesh_span_parents()
     out["proofs"] = [p.to_bytes() for p in proofs]
     out["commitments"] = commitments
-    out["honest"] = _verify(circuit, proofs, commitments, publics, m)
     bad_proofs = [R1CSProof.from_bytes(p.to_bytes()) for p in proofs]
     bad_publics = list(publics)
     for i, what in TAMPERED.items():
@@ -221,7 +230,53 @@ def _rank_job(dev):
     out["uneven rows"] = (rows.start, rows.stop)
     out["uneven proofs"] = [p.to_bytes() for p in proofs]
     out["uneven honest"] = _verify(circuit, proofs, commitments, publics, m)
+    out["app spans"] = _app_span_parents(meshes[(4, 1)])
     return out
+
+
+@contextmanager
+def _spans_on():
+    """Spans on and emptied; off and emptied again on the way out."""
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        yield
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+
+
+def _mesh_span_parents() -> dict:
+    """Each `mesh.*` span name recorded -> the names of the spans it opened
+    under ("top" for none)."""
+    recs = profiling.records()
+    names = {r.index: r.name for r in recs}
+    out = defaultdict(set)
+    for r in recs:
+        if r.name.startswith("mesh."):
+            out[r.name].add(names.get(r.parent, "top"))
+    return dict(out)
+
+
+def _app_span_parents(m) -> dict:
+    """`_mesh_span_parents` of one `prove_batch(mesh=m)` at list length 4, a
+    bid a rank, with tests/cheap_msms.py's tables and MSMs."""
+    from cheap_msms import fakes
+
+    reqs = [tblindbid.make_prove_request(d=100 + i, k=200 + i, seed=300 + i,
+                                         pub_list_extra=[7, 8, 9], toggle_pos=i % 4)
+            for i in range(RANKS)]
+    stand_ins = fakes()
+    real = {name: getattr(msm, name) for name in stand_ins}
+    for name, fake in stand_ins.items():
+        setattr(msm, name, fake)
+    try:
+        with _spans_on():
+            tblindbid.prove_batch(reqs, rng=np.random.default_rng(5), mesh=m)
+            return _mesh_span_parents()
+    finally:
+        for name, fn in real.items():
+            setattr(msm, name, fn)
 
 
 def _long_list_refusals(m) -> list[dict]:
@@ -442,6 +497,20 @@ def test_mesh_uneven_batch_proof_is_unsharded_proof(ranks, i):
 
 def test_mesh_uneven_batch_verifies(ranks):
     assert all(r["uneven honest"] == [True] * UNEVEN_B for r in ranks[0])
+
+
+def test_mesh_collectives_are_spans_under_prove_and_verify(ranks):
+    for r in ranks[0]:
+        assert {"prove", "verify"} <= r["prover spans"]["mesh.gather"]
+        assert "mesh.broadcast" not in r["prover spans"]
+
+
+def test_mesh_broadcast_is_a_span_under_prove_batch(ranks):
+    """The blindings are rank 0's draws, broadcast; the commitments are
+    gathered in the application layer, the proofs under `prove`."""
+    for r in ranks[0]:
+        assert r["app spans"] == {"mesh.broadcast": {"app.prove_batch"},
+                                  "mesh.gather": {"app.prove_batch", "prove"}}
 
 
 def test_mesh_refuses_a_long_list_on_every_rank(ranks):

@@ -1,7 +1,7 @@
 """The port's spans (utils/profiling.py), on the CPU: records with parent and
 pass ids, self times, the bounded buffer, the ranges they leave in a
-torch.profiler trace, the benchmark's three readers of them, and the four
-per-proof accounts of a BlindBid prove and verify."""
+torch.profiler trace, the benchmark's readers of them, and the per-proof
+accounts of a BlindBid prove and verify, without a mesh and on one."""
 
 from __future__ import annotations
 
@@ -15,17 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from cheap_msms import fakes as msm_fakes
 from bench_cuda import harness
 from bench_cuda.tracing import HOST_SPANS
 from dusk_blindbidproof_tpu_torch.models import blindbid
-from dusk_blindbidproof_tpu_torch.ops import edwards, msm
-from dusk_blindbidproof_tpu_torch.ops.limb import NLIMBS
-from dusk_blindbidproof_tpu_torch.utils import curve_host as chost
+from dusk_blindbidproof_tpu_torch.ops import msm
 from dusk_blindbidproof_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
 READERS = ("app.host_ms.batch", "device.wait_ms.batch", "limb.enqueue_ms.batch")
+MESH_READERS = ("mesh.collective_ms.batch", "mesh.rank_skew.batch")
 
 
 @pytest.fixture
@@ -173,6 +173,30 @@ def test_the_readers_on_a_synthetic_record():
         assert _reader(name).read({"proofs": 0}) is None
 
 
+def test_the_mesh_readers_on_a_synthetic_record():
+    record = {
+        "proofs": 4,
+        "span_total_s": {"mesh.gather": 0.3, "mesh.broadcast": 0.1, "prove": 5.0},
+        # the ranks' own work: 9, 8, 7 and 8 s, mean 8
+        "rank_trip_s": [10.0, 10.0, 10.0, 10.0],
+        "rank_mesh_s": [1.0, 2.0, 3.0, 2.0],
+    }
+    assert _reader("mesh.collective_ms.batch").read(record) == pytest.approx(100.0)
+    assert _reader("mesh.rank_skew.batch").read(record) == pytest.approx(12.5)
+    gather_only = dict(record, span_total_s={"mesh.gather": 0.2})
+    assert _reader("mesh.collective_ms.batch").read(gather_only) == pytest.approx(50.0)
+    even = dict(record, rank_mesh_s=[2.0] * 4)
+    assert _reader("mesh.rank_skew.batch").read(even) == 0.0
+    # nothing to read, and no error: an empty record, one card, a port
+    # without the mesh's spans (a rank with none), lists that disagree
+    for name in MESH_READERS:
+        assert _reader(name).read({}) is None
+        assert _reader(name).read({"proofs": 4, "span_total_s": {"prove": 1.0}}) is None
+    assert _reader("mesh.collective_ms.batch").read(dict(record, proofs=0)) is None
+    for spent in ([None] * 4, [1.0, 2.0, None, 2.0], [1.0, 2.0], []):
+        assert _reader("mesh.rank_skew.batch").read(dict(record, rank_mesh_s=spent)) is None
+
+
 # ---------------------------------------------------------------------------
 # The four accounts of one prove_batch + verify_batch (L = 4, B = 2)
 # ---------------------------------------------------------------------------
@@ -181,25 +205,10 @@ def test_the_readers_on_a_synthetic_record():
 @pytest.fixture
 def cheap_msms(monkeypatch):
     """The generator tables and every MSM replaced by zero tables and the
-    basepoint (B = 2 at n = 2048 on the CPU would take minutes): the control
-    flow, the spans and the host work are the real ones, the proofs do not
-    verify."""
-    base = edwards.from_host(chost.RISTRETTO_BASEPOINT)
-
-    def tables(gens_capacity, device):
-        z = torch.zeros((1, 1, 1, 1), dtype=torch.int32, device=device)
-        return z.expand(2 * gens_capacity + 2, msm.WINDOWS, 4, NLIMBS), None
-
-    def fake_prescaled(table, digits, niels=False, d_max=msm.D_BUCKETS):
-        return base.to(digits.device).expand(*digits.shape[:-2], 4, NLIMBS).clone()
-
-    def fake_msm(points, scalars):
-        return base.to(scalars.device).expand(*scalars.shape[:-2], 4, NLIMBS).clone()
-
-    monkeypatch.setattr(msm, "pedersen_tables", tables)
-    monkeypatch.setattr(msm, "pedersen_tables_niels", tables)
-    monkeypatch.setattr(msm, "msm_prescaled", fake_prescaled)
-    monkeypatch.setattr(msm, "msm", fake_msm)
+    basepoint (tests/cheap_msms.py): the control flow, the spans and the
+    host work are the real ones, the proofs do not verify."""
+    for name, fake in msm_fakes().items():
+        monkeypatch.setattr(msm, name, fake)
 
 
 def _measure(intervals) -> int:
@@ -215,8 +224,9 @@ def _measure(intervals) -> int:
 
 
 def _accounts(recs) -> dict[str, list[tuple[int, int]]]:
-    """Each account's host intervals: whole spans for the host phases and the
-    device waits, spans less their children for the self-time accounts."""
+    """Each account's host intervals: whole spans for the host phases, the
+    device waits and the mesh's collectives, spans less their children for
+    the self-time accounts."""
     enqueue = set(_reader("limb.enqueue_ms.batch").ENQUEUE_SPANS)
     kids = defaultdict(list)
     for r in recs:
@@ -241,6 +251,8 @@ def _accounts(recs) -> dict[str, list[tuple[int, int]]]:
             acc["enqueue"] += own(r)
         elif r.name in ("device.d2h", "device.h2d"):
             acc["wait"].append((r.start_ns, r.end_ns))
+        elif r.name.startswith("mesh."):
+            acc["mesh"].append((r.start_ns, r.end_ns))
     return acc
 
 
@@ -284,3 +296,56 @@ def test_the_four_accounts_are_disjoint_and_cover_a_round_trip(spans, cheap_msms
     # without the record's keys they read the same from the program's spans
     for name in READERS:
         assert _reader(name).read({"proofs": B}) == _reader(name).read(record)
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A 1 x 1 mesh over a gloo process group of this process alone."""
+    import torch.distributed as dist
+
+    from dusk_blindbidproof_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield pmesh.make_mesh(bids=1, points=1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_accounts_stay_disjoint_with_the_mesh_spans_inside_them(spans, cheap_msms,
+                                                                   one_rank_mesh):
+    """With `mesh=`, the collectives' spans are children of `app.prove_batch`,
+    `prove` and `verify`: their time leaves those spans' self time, so the
+    five accounts never count an instant twice."""
+    B = 2
+    reqs = [blindbid.make_prove_request(d=1000 + i, k=2000 + i, seed=3000 + i,
+                                        pub_list_extra=[11, 12, 13], toggle_pos=i)
+            for i in range(B)]
+    t0 = time.perf_counter_ns()
+    proofs = blindbid.prove_batch(reqs, rng=np.random.default_rng(5), mesh=one_rank_mesh)
+    verdicts = blindbid.verify_batch(
+        [blindbid.VerifyRequest(proof=p, score=r.q, z_img=r.z_img, seed=r.seed,
+                                pub_list=r.pub_list) for p, r in zip(proofs, reqs)],
+        mesh=one_rank_mesh)
+    wall = time.perf_counter_ns() - t0
+    assert len(verdicts) == B
+    recs = spans.records()
+    names = {r.index: r.name for r in recs}
+    parents = defaultdict(set)
+    for r in recs:
+        if r.name.startswith("mesh."):
+            parents[r.name].add(names[r.parent])
+    assert parents == {"mesh.broadcast": {"app.prove_batch"},
+                       "mesh.gather": {"app.prove_batch", "prove", "verify"}}
+
+    acc = _accounts(recs)
+    assert set(acc) == {"host", "app", "enqueue", "wait", "mesh"}
+    sizes = {k: sum(e - s for s, e in v) for k, v in acc.items()}
+    union = _measure([iv for v in acc.values() for iv in v])
+    assert sum(sizes.values()) == union  # no instant is counted twice
+    assert wall * 0.9 <= union <= wall, (sizes, wall)
+    record = {"proofs": B, "span_self_s": spans.self_times(), "span_total_s": spans.totals()}
+    assert _reader("mesh.collective_ms.batch").read(record) == pytest.approx(
+        sizes["mesh"] / 1e6 / B, rel=1e-6)
+    for name, key in zip(READERS, ("app", "wait", "enqueue")):
+        assert _reader(name).read(record) == pytest.approx(sizes[key] / 1e6 / B, rel=1e-6)
