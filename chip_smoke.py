@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
      madd_scan on 16 x 82040 and 16 x 2 x 40980 Niels items, add_scan on
      32 x 1281 and add_total on 32 x 8191 points, and madd_scan with R = 2 on
      16 x 2564 blocks; random, all-8192, zero and identity inputs, compared
-     exactly with canon(plain); kernel time from CUDA events around a replayed
+     exactly with canon(plain); Ristretto compression on the B = 16 prover's
+     16 x 8 commitments and 16 x 2 IPA points (curve points made by K3, an
+     identity and an all-8192 row), byte for byte against its plain version
+     on the CPU, with the host's per-point compression timed beside it;
+     kernel time from CUDA events around a replayed
      CUDA graph of wrapper calls, eager-loop and plain times from CUDA events;
   3. the main path at B = 1: BlindBid prove at list length 4 with
      rng = default_rng(42) must give the frozen n = 2048 proof bytes,
@@ -86,8 +90,9 @@ Phases, in order; any failure exits non-zero:
         torch.profiler (kernel events, as scripts/profile_port.py reckons it);
      c. the kernels at 7b's shapes: madd_scan on phase A's and an IPA round's
         items, double_chain on the 131074 table points, K1 mod l on B x 2^16
-        rows, exact against canon(plain) (the scans and the chain on slices of
-        rows, LARGE_SLICE), timed as in phase 2;
+        rows, compress on an IPA round's B x 2 points, exact against
+        canon(plain) (the scans and the chain on slices of rows, LARGE_SLICE),
+        timed as in phase 2;
   8. the full list: BlindBid at FULL_LIST = 202 bids, the longest list the
      generators hold (n1 = 1442 + 3 x 202 = n = 2048, 206 commitments, 205
      publics; the verifier's dynamic MSM has 236 points a proof, 4720 window
@@ -127,8 +132,9 @@ Phases, in order; any failure exits non-zero:
         after (every kernel must have launched), in which `KernelShapes`
         keeps each kernel's largest call; the peak device memory of the
         phase; the device-busy share of one round trip under torch.profiler;
-     b. every kernel at the largest shape 9a gave it, exact against
-        canon(plain) on LARGE_SLICE units at each end, timed as in phase 2;
+     b. every kernel at the largest shape 9a gave it (compress: the 256 x 8
+        commitments), exact against canon(plain) on LARGE_SLICE units at each
+        end, timed as in phase 2;
  10. the kernels line (JSON), the card line, then the result line.
 """
 
@@ -211,6 +217,7 @@ SCAN_FIELD_MULS = {"madd_scan": 7, "add_scan": 9, "add_total": 9}
 SOURCE = "dusk_blindbidproof_tpu_torch/csrc/edwards_kernels.cu"
 PLANES = "dusk_blindbidproof_tpu/ops/fused.py:220"
 SCALAR_MUL = "dusk_blindbidproof_tpu/ops/fused.py:328"
+HOST_COMPRESS = "dusk_blindbidproof_tpu/models/bulletproofs.py:119"
 REPLACES = {
     "mul_rows_fp": SCALAR_MUL,
     "mul_rows_fl": SCALAR_MUL,
@@ -221,7 +228,13 @@ REPLACES = {
     "madd_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:357",
     "add_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:109",
     "add_total": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:164",
+    "compress": f"no TPU kernel: the host's per-point compression, {HOST_COMPRESS}",
 }
+# Ristretto compression a point (ristretto_compress_kernel): squares and
+# products of its field chain, and the point read plus the encoding written
+COMPRESS_SQRS, COMPRESS_MULS = 258, 34
+COMPRESS_BYTES = 4 * FE_BYTES + 32
+COMPRESS_OPS = COMPRESS_SQRS * OPS_PER_FIELD_SQR + COMPRESS_MULS * OPS_PER_FIELD_MUL
 # the scans' shapes on the main path at B = 16:
 # (kernel, caller, leading shape x items, affine-Niels items, R, timed launches)
 SCAN_CASES = [
@@ -245,7 +258,7 @@ SQR_CHAIN_K = (100, 50, 2)  # runs of squarings in x^(2^252 - 3); the longest go
 # launches of a B = 16 round trip that the chains must have taken over: K4 is
 # left with the 3 x 12 Horner steps, K1 mod p with the products between chains
 LAUNCH_LIMITS = {"double": 40, "mul_rows_fp": 60}
-N_KERNELS = 10  # entry functions of the library: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans
+N_KERNELS = 11  # entry functions: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans, compress
 TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
 # phase 5: connections opened at once, in this order; 16 is the service's cap,
 # 5 and 11 are batches that are not a power of two, 17 must split
@@ -399,7 +412,8 @@ class KernelChecks:
 
     def case(self, name, label, kern, ref, ctx, n_bytes, n_ops, reps, plain_reps=1):
         """kern and ref take no arguments and return a tensor or a tuple of
-        tensors.  Returns the kernel's ms."""
+        tensors; ctx None (encodings, not limbs) compares them as they are.
+        Returns the kernel's ms."""
         from dusk_blindbidproof_tpu_torch.ops import limb
 
         got, want = kern(), ref()
@@ -409,7 +423,7 @@ class KernelChecks:
         for g, w in zip(got, want):
             if g.shape != w.shape:
                 fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
-            err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
+            err = max(err, int((g - canon_of(ctx, w)).abs().max()))
         if err:
             fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
         del got, want, g, w
@@ -427,11 +441,19 @@ class KernelChecks:
         return ms
 
 
+def canon_of(ctx, x: torch.Tensor) -> torch.Tensor:
+    """canon(x) mod ctx's modulus; x itself where ctx is None (encodings)."""
+    from dusk_blindbidproof_tpu_torch.ops import limb
+
+    return x if ctx is None else limb.canon(ctx, x)
+
+
 def check_kernels(dev) -> dict:
     checks = KernelChecks(dev)
     check_rows(checks)
     check_points(checks)
     check_scans(checks)
+    check_compress(checks)
     return checks.results
 
 
@@ -540,6 +562,51 @@ def check_scans(checks) -> None:
         checks.case(name, f"{label}, {n} items in {n // R} blocks of {R}",
                     lambda: kern(x, R), lambda: ref(x, R), limb.FP, n_bytes,
                     n * SCAN_FIELD_MULS[name] * OPS_PER_FIELD_MUL, reps)
+
+
+def compress_points(dev, shape) -> torch.Tensor:
+    """[*shape, 4, NLIMBS] points for compression: sums of basepoint
+    multiples made by K3 (so Z is not 1), with an identity and an all-8192
+    row in front."""
+    from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb
+    from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+
+    n = int(np.prod(shape))
+    base = edwards.from_host([host.ED25519_BASEPOINT.scalar_mul(3 ** k + 5) for k in range(64)],
+                             dev)
+    idx = torch.arange(n, device=dev)
+    pts = fused.add(base[idx % 64], base[(idx // 64 + 7 * idx) % 64])
+    pts[0] = edwards.identity(device=dev)
+    if n > 1:
+        pts[1] = 8192
+    return pts.view(*shape, 4, limb.NLIMBS)
+
+
+def host_compress_ms(points: torch.Tensor) -> float:
+    """ms of curve_host's compression of every point, one at a time in host
+    integers, as the prover's host path does it (its read included)."""
+    from dusk_blindbidproof_tpu_torch.ops import limb
+    from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+
+    t0 = time.perf_counter()
+    for row in points.reshape(-1, 4, limb.NLIMBS).cpu().numpy():
+        host.ristretto_compress(host.EdwardsPoint(*(limb.limbs_to_int(c) for c in row)))
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_compress(checks) -> None:
+    """Ristretto compression at the B = 16 prover's calls, byte for byte
+    against its plain version on the CPU."""
+    from dusk_blindbidproof_tpu_torch.ops import fused
+
+    for shape, label in (((16, 8), "the commitments V"), ((16, 2), "an IPA round's L and R")):
+        pts = compress_points(checks.dev, shape)
+        n = pts.numel() // (4 * pts.shape[-1])
+        checks.case("compress", f"{label}, {n} points", lambda: fused.compress(pts),
+                    lambda: fused.compress_ref(pts.cpu()).to(checks.dev), None,
+                    n * COMPRESS_BYTES, n * COMPRESS_OPS, 50)
+        print(f"  the host's per-point compression of the same {n} points: "
+              f"{host_compress_ms(pts):.3f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1326,7 +1393,8 @@ def chain_small(dev) -> None:
 
 # entry functions of csrc/edwards_kernels.cu, as the profiler names them
 OWN_KERNELS = ("point_step_kernel", "point_scan_kernel", "point_double_kernel",
-               "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel")
+               "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel",
+               "ristretto_compress_kernel")
 
 
 def kernel_rows(prof) -> list[dict]:
@@ -1468,7 +1536,7 @@ def sliced_case(results: dict, counts: dict, name, label, kern, pairs, ctx, n_by
         for g, w in zip(mine, want):
             if g.shape != w.shape:
                 fail(f"{name} ({label}): shape {tuple(g.shape)} != {tuple(w.shape)}")
-            err = max(err, int((g - limb.canon(ctx, w)).abs().max()))
+            err = max(err, int((g - canon_of(ctx, w)).abs().max()))
     if err:
         fail(f"{name} ({label}) disagrees with its plain version (max abs err {err})")
     del got
@@ -1557,6 +1625,13 @@ def check_large_kernels(dev, counts: dict) -> dict:
     sliced_case(results, counts, "mul_rows_fl", f"IPA fold, {rows} rows", lambda: fused.mul_rows(limb.FL, a, b),
          [(lambda got: got, lambda: fused.mul_rows_ref(limb.FL, a, b))], limb.FL,
          rows * 3 * FE_BYTES, rows * OPS_PER_FIELD_MUL, 20, f"all {rows} rows")
+
+    # compress: an IPA round's L and R of the batch
+    pts = compress_points(dev, (B, 2))
+    sliced_case(results, counts, "compress", f"IPA round, {2 * B} points",
+                lambda: fused.compress(pts),
+                [(lambda got: got, lambda: fused.compress_ref(pts.cpu()).to(dev))], None,
+                2 * B * COMPRESS_BYTES, 2 * B * COMPRESS_OPS, 50, f"all {2 * B} points")
     return results
 
 
@@ -1829,7 +1904,7 @@ class KernelShapes:
     scans."""
 
     WRAPPERS = ("mul_rows", "sqr_chain", "add", "double", "double_chain", "madd_scan",
-                "add_scan", "add_total")
+                "add_scan", "add_total", "compress")
 
     def __enter__(self):
         from dusk_blindbidproof_tpu_torch.ops import fused
@@ -1848,7 +1923,7 @@ class KernelShapes:
                     keep("sqr_chain", args[1], args[2], args[1].numel() * args[2])
                 elif wrapper == "double_chain":
                     keep("double_chain", args[0], args[1:], args[0].numel() * args[1] * args[2])
-                else:  # add, double (no parameter) and the scans (R)
+                else:  # add, double, compress (no parameter) and the scans (R)
                     keep(wrapper, args[0], args[1] if wrapper in SCAN_ITEM_ROWS else None,
                          args[0].numel())
                 return fn(*args)
@@ -1972,7 +2047,7 @@ def check_config4_kernels(dev, largest: dict, counts: dict) -> dict:
         if name not in largest:
             fail(f"phase 9's round trip gave {name} no CUDA operands")
         shape, params, _ = largest[name]
-        ctx = limb.FL if name == "mul_rows_fl" else limb.FP
+        ctx = None if name == "compress" else limb.FL if name == "mul_rows_fl" else limb.FP
         if name.startswith("mul_rows") or name == "sqr_chain":
             a = rand(shape).view(-1, nl)
             a[0], a[1] = 8192, 0
@@ -2000,6 +2075,19 @@ def check_config4_kernels(dev, largest: dict, counts: dict) -> dict:
                 n_ops = units * (OPS_PER_FIELD_SQR if params else OPS_PER_FIELD_MUL)
                 label = "square" if params else "product"
             label = f"{label}, {units} rows"
+        elif name == "compress":
+            pts = compress_points(dev, shape[:-2])  # shape: [B, k, 4, NLIMBS] points
+            units = pts.numel() // (4 * nl)
+            flat = pts.view(units, 4, nl)
+            unit, label = (8,), f"{units} points"
+
+            def kern():
+                return fused.compress(pts)
+
+            def ref(idx):
+                return fused.compress_ref(flat[idx].cpu()).to(dev)
+
+            n_bytes, n_ops = units * COMPRESS_BYTES, units * COMPRESS_OPS
         elif name in ("add", "double", "double_chain"):
             p = rand(shape).view(-1, 4, nl)
             p[0], p[1] = 8192, edwards.identity(device=dev)

@@ -1,8 +1,8 @@
 // Hand-written Hopper kernels for the BlindBid prover and verifier:
 // the modular product of limb rows (K1) and its squaring chain, the Edwards
 // point ops in extended coordinates, a = -1 (K3 add, K4 double; K2 madd as
-// the leaf of its scan), the 32-step bucket scans built on K2 and K3, and the
-// doubling chain built on K4.
+// the leaf of its scan), the 32-step bucket scans built on K2 and K3, the
+// doubling chain built on K4, and the prover's Ristretto compression.
 //
 // Built by ops/fused.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -24,6 +24,9 @@
 //                         (dusk_blindbidproof_tpu/ops/msm.py:57-69)
 //   bb_sqr_chain       <- the mod-p product as the fori_loop of _pow2k drives
 //                         it (dusk_blindbidproof_tpu/ops/ristretto.py:26-33)
+//   bb_compress        <- no TPU kernel: the host's per-point compression
+//                         (dusk_blindbidproof_tpu/models/bulletproofs.py,
+//                         _compress_host)
 //
 // Design: one thread per item (one product, one point op, one block of R
 // consecutive items of a scan, or one point or row of a chain); an item's
@@ -318,6 +321,88 @@ double_chain_kernel(const int4* __restrict__ p, int32_t* __restrict__ out, long 
   }
 }
 
+// ---- Ristretto compression ----------------------------------------------------
+
+// u1 = (Z + Y)(Z - Y) and u2 = X Y of the point at `item`.
+__device__ __forceinline__ void compress_u(const int4* __restrict__ item, w::Fe& u1, w::Fe& u2) {
+  const w::Fe y = w::fe_load<1>(item), z = w::fe_load<2>(item);
+  u1 = w::fe_mul(w::fe_add(z, y), w::fe_sub(z, y));
+  u2 = w::fe_mul(w::fe_load<0>(item), y);
+}
+
+// s of the point at `item`: curve_host.ristretto_compress (dalek's
+// RistrettoPoint::compress) step by step, class R.  invsqrt(u1 u2^2) is
+// sqrt_ratio_i(1, v) with v = u1 u2^2: r = v^3 (v^7)^((p-5)/8), and
+// (v^7)^((p-5)/8) = w^4 v^7 with w = (v^7)^(2^250 - 1).  Only the chain's own
+// values are live across its 249 squarings: u1, u2, v, v^3 and v^7 are made
+// again from the point's rows after it (with v^7 live across the chain as
+// well, the kernel spilled at 128 registers).  sqrt_ratio_i's first test
+// (check = u) decides only whether v was a square, which compression does
+// not read; its other two tests and its sign test, and compression's three
+// sign tests, are made on canonical values.
+__device__ __forceinline__ w::Fe ristretto_s(const int4* __restrict__ item) {
+  w::Fe w250;
+  {
+    w::Fe u1, u2;
+    compress_u(item, u1, u2);
+    const w::Fe v = w::fe_mul(u1, w::fe_sqr(u2));
+    const w::Fe v3 = w::fe_mul(w::fe_sqr(v), v);
+    w250 = w::fe_pow_250_1(w::fe_mul(w::fe_sqr(v3), v));
+  }
+  w::Fe u1, u2;
+  compress_u(item, u1, u2);
+  const w::Fe v = w::fe_mul(u1, w::fe_sqr(u2));
+  const w::Fe v3 = w::fe_mul(w::fe_sqr(v), v);
+  const w::Fe p58 = w::fe_mul(w::fe_pow2k(w250, 2), w::fe_mul(w::fe_sqr(v3), v));
+  w::Fe r = w::fe_mul(v3, p58);  // u v^3 (u v^7)^((p-5)/8), u = 1
+  const w::Fe check = w::fe_mul(v, w::fe_sqr(r));
+  const w::Fe sqrt_m1 = w::fe_sqrt_m1();
+  const bool flipped = w::fe_eq(check, w::fe_neg(w::fe_one()));  // check = -u
+  const bool flipped_i = w::fe_eq(check, w::fe_neg(sqrt_m1));     // check = -u sqrt(-1)
+  r = w::fe_select(flipped || flipped_i, w::fe_mul(r, sqrt_m1), r);
+  const w::Fe inv = w::fe_abs(r);
+  const w::Fe den1 = w::fe_mul(inv, u1), den2 = w::fe_mul(inv, u2);
+  const w::Fe t = w::fe_load<3>(item);
+  const w::Fe z_inv = w::fe_mul(w::fe_mul(den1, den2), t);
+  const bool rotate = w::fe_is_neg(w::fe_mul(t, z_inv));
+  const w::Fe x0 = w::fe_load<0>(item), y0 = w::fe_load<1>(item);
+  const w::Fe x = w::fe_select(rotate, w::fe_mul(y0, sqrt_m1), x0);  // i Y
+  w::Fe y = w::fe_select(rotate, w::fe_mul(x0, sqrt_m1), y0);        // i X
+  const w::Fe den_inv =
+      w::fe_select(rotate, w::fe_mul(den1, w::fe_invsqrt_a_minus_d()), den2);
+  y = w::fe_select(w::fe_is_neg(w::fe_mul(x, z_inv)), w::fe_neg(y), y);
+  return w::fe_abs(w::fe_mul(den_inv, w::fe_sub(w::fe_load<2>(item), y)));
+}
+
+// out[i] = the Ristretto encoding of p[i]: 32 bytes as 8 little-endian words,
+// one thread a point.  Replaces no TPU kernel: the JAX package compresses the
+// prover's points on the host, in Python integers, one at a time
+// (dusk_blindbidproof_tpu/models/bulletproofs.py, _compress_host), as the
+// port's CPU prover still does.  It serves the prover's four
+// transcript boundaries (the commitments V, A_I1 A_O1 S1, the T_i, each IPA
+// round's L and R): one launch on the whole batch's points, and only the
+// encodings cross to the host.
+//
+// What bounds it: the operations, 258 squares and 34 products a point (the
+// chain to 2^250 - 1 is 249 squares and 10 products) against 368 bytes (the
+// point read, the encoding written).  A point is a chain of several thousand
+// dependent integer instructions in one thread, and the prover's calls hold
+// 32 to 2048 points, a fraction of one wave: the launch is latency bound
+// (about 0.077 ms from 32 to 2048 points on an H100, against a bound of
+// 0.0002 to 0.0034 ms), which is accepted, since the host took about 0.2 to
+// 0.3 ms a point.  No point is split over lanes: that would shorten a launch
+// already this short at the cost of shuffles in every product.
+__global__ void __launch_bounds__(kPtThreads, kPtMinBlocks)
+ristretto_compress_kernel(const int4* __restrict__ p, int4* __restrict__ out, long long n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // n < 2^31, see the entry point
+  if (i >= n) return;
+  uint32_t words[8];
+  w::fe_to_le_words(ristretto_s(p + (long long)i * kPtVecs), words);
+  out[2 * (long long)i] = make_int4((int)words[0], (int)words[1], (int)words[2], (int)words[3]);
+  out[2 * (long long)i + 1] =
+      make_int4((int)words[4], (int)words[5], (int)words[6], (int)words[7]);
+}
+
 // ---- the row kernels --------------------------------------------------------
 
 namespace sc = sc25519;
@@ -540,6 +625,15 @@ int bb_double_chain(const int32_t* p, int32_t* out, long long n, int windows, in
     return kBadArgument;
   double_chain_kernel<<<blocks_for(n, kPtThreads), kPtThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)p, out, n, windows, steps);
+  return (int)cudaGetLastError();
+}
+
+// p [n, 4, 21] -> out [n, 8]: the little-endian words of each point's
+// 32-byte Ristretto encoding; both 16-byte aligned.
+int bb_compress(const int32_t* p, int32_t* out, long long n, void* stream) {
+  if (n >= (1ll << 31) - kPtThreads) return kBadArgument;  // the kernel counts points in 32 bits
+  ristretto_compress_kernel<<<blocks_for(n, kPtThreads), kPtThreads, 0, (cudaStream_t)stream>>>(
+      (const int4*)p, (int4*)out, n);
   return (int)cudaGetLastError();
 }
 

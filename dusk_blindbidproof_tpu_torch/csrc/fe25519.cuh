@@ -1,7 +1,7 @@
 // Field arithmetic mod p = 2^255 - 19 for every mod-p kernel: the point
-// kernels (K2 madd, K3 add, K4 double, the bucket scans, the doubling chain)
-// and the row kernels (K1 mul_rows mod p, the squaring chain), one element
-// per thread.
+// kernels (K2 madd, K3 add, K4 double, the bucket scans, the doubling chain,
+// Ristretto compression) and the row kernels (K1 mul_rows mod p, the squaring
+// chain), one element per thread.
 //
 // Replaces the limb planes of the Pallas kernels
 // (dusk_blindbidproof_tpu/ops/fused.py, `_build_planes` and, for mod p,
@@ -266,6 +266,89 @@ __device__ __forceinline__ void fe_to_words(const Fe& a, uint32_t* __restrict__ 
     s[j] = (uint32_t)(win >> sh) & 0x1FFFu;
   }
   s[kRowWords - 1] = 0;  // bits 260..272 of a value < 2^255
+}
+
+// Class R -> the canonical value's 32 little-endian bytes as 8 words (the
+// value is < 2^255, so the last word's top bit is 0).
+__device__ __forceinline__ void fe_to_le_words(const Fe& a, uint32_t* __restrict__ out) {
+  const Fe h = fe_canon(a);
+  uint64_t acc = 0;  // below 2^(n + 26) < 2^58
+  int n = 0, k = 0;  // bits in acc, words written: compile-time under the unroll
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    acc |= (uint64_t)h.v[i] << n;
+    n += fe_bits(i);
+    if (n >= 32) {
+      out[k++] = (uint32_t)acc;
+      acc >>= 32;
+      n -= 32;
+    }
+  }
+  out[k] = (uint32_t)acc;  // k = 7: bits 224..254
+}
+
+// ---- what Ristretto compression adds: signs, equality, the 2^250 - 1 chain
+
+// sqrt(-1) mod p, the even root (curve_host.SQRT_M1)
+__device__ __forceinline__ Fe fe_sqrt_m1() {
+  return Fe{{34513072u, 25610706u, 9377949u, 3500415u, 12389472u,
+             33281959u, 41962654u, 31548777u, 326685u, 11406482u}};
+}
+
+// 1 / sqrt(a - d) with a = -1 (curve_host.INVSQRT_A_MINUS_D)
+__device__ __forceinline__ Fe fe_invsqrt_a_minus_d() {
+  return Fe{{6111466u, 4156064u, 39310137u, 12243467u, 41204824u,
+             120896u, 20826367u, 26493656u, 6093567u, 31568420u}};
+}
+
+// -a, class R -> class R.
+__device__ __forceinline__ Fe fe_neg(const Fe& a) { return fe_carry(fe_sub(fe_zero(), a)); }
+
+// The sign of a class-R element: the lowest bit of its canonical value.
+__device__ __forceinline__ bool fe_is_neg(const Fe& a) { return fe_canon(a).v[0] & 1u; }
+
+// a = b mod p, both class R.
+__device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
+  const Fe x = fe_canon(a), y = fe_canon(b);
+  bool eq = true;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) eq &= x.v[i] == y.v[i];
+  return eq;
+}
+
+// c ? a : b, limb by limb (no branch: the warp stays converged).
+__device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
+  Fe x;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) x.v[i] = c ? a.v[i] : b.v[i];
+  return x;
+}
+
+// |a|: the non-negative one of a and -a, class R.
+__device__ __forceinline__ Fe fe_abs(const Fe& a) { return fe_select(fe_is_neg(a), fe_neg(a), a); }
+
+// x^(2^k), k squarings in registers.
+__device__ __forceinline__ Fe fe_pow2k(Fe x, int k) {
+#pragma unroll 1
+  for (int s = 0; s < k; ++s) x = fe_sqr(x);
+  return x;
+}
+
+// x^(2^250 - 1): the ed25519 addition chain of ops/ristretto.py's pow_p58 up
+// to its last step (x^(2^252 - 3) is this to the 4th, times x), 249 squarings
+// and 10 products.
+__device__ __forceinline__ Fe fe_pow_250_1(const Fe& x) {
+  const Fe t0 = fe_sqr(x);                      // x^2
+  const Fe t1 = fe_mul(fe_pow2k(t0, 2), x);     // x^9
+  const Fe t2 = fe_mul(t0, t1);                 // x^11
+  const Fe t3 = fe_mul(fe_sqr(t2), t1);         // x^31 = x^(2^5 - 1)
+  const Fe t4 = fe_mul(fe_pow2k(t3, 5), t3);    // 2^10 - 1
+  const Fe t5 = fe_mul(fe_pow2k(t4, 10), t4);   // 2^20 - 1
+  const Fe t6 = fe_mul(fe_pow2k(t5, 20), t5);   // 2^40 - 1
+  const Fe t7 = fe_mul(fe_pow2k(t6, 10), t4);   // 2^50 - 1
+  const Fe t8 = fe_mul(fe_pow2k(t7, 50), t7);   // 2^100 - 1
+  const Fe t9 = fe_mul(fe_pow2k(t8, 100), t8);  // 2^200 - 1
+  return fe_mul(fe_pow2k(t9, 50), t7);          // 2^250 - 1
 }
 
 // Canonical row `ROW` of the point at `item` (16-byte aligned): 21 limbs of

@@ -7,8 +7,10 @@ The same phase structure as the JAX package's engine:
     t-polynomial, inner-product folds) runs on the device over 13-bit-limb
     tensors (ops.limb / ops.msm), batched over independent proofs;
   * the Merlin transcript lives on the host; between device phases only
-    canonical point limbs and challenge scalars cross, and the whole batch
-    advances its transcripts in lockstep at each boundary;
+    the points' 32-byte Ristretto encodings (compressed on the card; on the
+    CPU, canonical point limbs compressed on the host) and challenge scalars
+    cross, and the whole batch advances its transcripts in lockstep at each
+    boundary;
   * the inner-product argument never folds generator vectors: coefficient
     vectors (c_G, c_H) accumulate the challenge products, so every L/R
     commitment is a fixed-base MSM against the window tables.
@@ -44,7 +46,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..ops import edwards, limb, msm, ristretto
+from ..ops import edwards, fused, limb, msm, ristretto
 from ..ops.limb import FL, FP, NLIMBS
 from ..parallel import mesh as pmesh
 from ..utils import curve_host as chost
@@ -97,15 +99,43 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 def _compress_host(arr: np.ndarray) -> list[bytes]:
     """[..., 4, NLIMBS] CANONICAL point limbs (host numpy) -> flat list of
-    32-byte Ristretto encodings.  The sqrt/inversion chain runs per point in
-    host integers: at phase-output widths (a handful of points per proof)
-    this beats the device chain's ~265 sequential tiny-width steps."""
+    32-byte Ristretto encodings, per point in host integers: the CPU path of
+    the prover's compression (a CUDA prover compresses on the card,
+    `DEVICE_COMPRESS`)."""
     out = []
     with span("host.compress"):
         for row in np.asarray(arr).reshape(-1, 4, NLIMBS):
             pt = chost.EdwardsPoint(*[limb.limbs_to_int(c) for c in row])
             out.append(chost.ristretto_compress(pt))
     return out
+
+
+def _compress_kernel(points: torch.Tensor) -> torch.Tensor:
+    return fused.compress(*fused.kernel_operands(points))
+
+
+# The prover's compression on a device, by device type: [B, k, 4, NLIMBS]
+# points -> [B, k, 8] int32 words of their encodings, of which alone the
+# host reads.  A device type without an entry (the CPU) hands the points'
+# limbs to the host, which compresses them (`_compress_host`).
+DEVICE_COMPRESS = {"cuda": _compress_kernel}
+
+
+def _read_points(points: torch.Tensor) -> np.ndarray:
+    """The host's read of a device phase's [B, k, 4, NLIMBS] points: the
+    [B, k, 32] uint8 encodings where the device compresses, else the limbs.
+    `_encodings` turns a row of either into bytes."""
+    compress = DEVICE_COMPRESS.get(points.device.type)
+    if compress is None:
+        return _host(points)
+    return _host(compress(points)).view(np.uint8)
+
+
+def _encodings(row: np.ndarray) -> list[bytes]:
+    """One proof's row of `_read_points` -> its 32-byte encodings."""
+    if row.dtype == np.uint8:
+        return [e.tobytes() for e in row]
+    return _compress_host(row)
 
 
 def _limb_row_to_int(row) -> int:
@@ -539,15 +569,15 @@ class Prover(_MeshRows):
             return self._gather([])
         B, m = len(values), len(values[0])
         with span("prove.commit_V"):
-            comp = _host(commit_pedersen_tiny(
+            comp = _read_points(commit_pedersen_tiny(
                 self.tables,
                 self._ints([values[i][j] % L for i in range(B) for j in range(m)], (B, m)),
                 self._ints([blindings[i][j] % L for i in range(B) for j in range(m)], (B, m)),
             ))
         out = []
-        with span("prove.commit_V_host"):  # compression and transcript, B x m points
+        with span("prove.commit_V_host"):  # the B x m encodings into the transcripts
             for i, t in enumerate(self.transcripts):
-                row = _compress_host(comp[i])
+                row = _encodings(comp[i])
                 for c in row:
                     append_point(t, b"V", c)
                 out.append(row)
@@ -611,12 +641,12 @@ class Prover(_MeshRows):
         s_L, s_R = limb.limbs_from_words(_dev(s_words, dev))
 
         with span("prove.phase_a"):
-            comp_a = _host(phase_a(self.tables, a_L, a_R, a_O, s_L, s_R,
-                                   _dev(i_blind, dev)))
+            comp_a = _read_points(phase_a(self.tables, a_L, a_R, a_O, s_L, s_R,
+                                          _dev(i_blind, dev)))
         ys, zs, A_bytes = [], [], []
         with span("prove.host_yz"):
             for i, t in enumerate(ts):
-                ai, ao, s = _compress_host(comp_a[i])
+                ai, ao, s = _encodings(comp_a[i])
                 append_point(t, b"A_I1", ai)
                 append_point(t, b"A_O1", ao)
                 append_point(t, b"S1", s)
@@ -653,14 +683,14 @@ class Prover(_MeshRows):
                     t_vals.append(_limb_row_to_int(t_host[i, k - 1]))
                     t_blinds.append(tb[k])
         with span("prove.commit_T"):
-            T_comp = _host(commit_pedersen_tiny(
+            T_comp = _read_points(commit_pedersen_tiny(
                 self.tables, self._ints(t_vals, (B, 5)), self._ints(t_blinds, (B, 5))
             ))
 
         us, xs, ws_, txs, txbs, ebs, T_bytes_all = [], [], [], [], [], [], []
         with span("prove.host_uxw"):
             for i, t in enumerate(ts):
-                T_bytes = _compress_host(T_comp[i])
+                T_bytes = _encodings(T_comp[i])
                 for label, tb in zip([b"T_1", b"T_3", b"T_4", b"T_5", b"T_6"], T_bytes):
                     append_point(t, label, tb)
                 T_bytes_all.append(T_bytes)
@@ -706,11 +736,11 @@ class Prover(_MeshRows):
         h = n_pad // 2
         while h >= 1:
             with span("prove.ipa_round"):
-                lr_host = _host(_ipa_lr(self.tables, a_vec, b_vec, c_G, c_H, w_l, h)[0])
+                lr_host = _read_points(_ipa_lr(self.tables, a_vec, b_vec, c_G, c_H, w_l, h)[0])
             with span("prove.ipa_host"):
                 u_ints = []
                 for i, t in enumerate(ts):
-                    lb, rb = _compress_host(lr_host[i])
+                    lb, rb = _encodings(lr_host[i])
                     append_point(t, b"L", lb)
                     append_point(t, b"R", rb)
                     L_rounds[i].append(lb)

@@ -13,6 +13,8 @@ Pallas kernels, and the loops that drove them:
                   leaf is K2 madd, extended + affine-Niels (7M)
     add_scan      the same over extended points (K3 leaf)
     add_total     the R-item block sums alone (K3 leaf)
+    compress      Ristretto compression of extended points to their 32-byte
+                  encodings (the prover's transcript points; no TPU kernel)
 
 Everything mod p runs on csrc/fe25519.cuh (10 limbs of 26/25 bits inside the
 kernel), K1 mod l on csrc/sc25519.cuh (10 limbs of 28 bits); the tensors keep
@@ -21,7 +23,7 @@ step of `madd_scan`, and `madd_ref` is that scan's plain leaf.
 
 Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
 `sqr_chain_ref`, `add_ref`, `double_ref`, `double_chain_ref`,
-`madd_scan_ref`, `add_scan_ref`, `add_total_ref`) and a CUDA tensor to its
+`madd_scan_ref`, `add_scan_ref`, `add_total_ref`, `compress_ref`) and a CUDA tensor to its
 kernel, or raises: nothing falls back from the kernel to the plain version.
 A CUDA wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on its operands' card and that card's
@@ -52,6 +54,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import limb
@@ -67,7 +70,7 @@ NVCC_FLAGS = (
 
 # one launch count per kernel entry point; K1 counts each modulus apart
 KERNELS = ("mul_rows_fp", "mul_rows_fl", "sqr_chain", "add", "double", "double_chain",
-           "madd_scan", "add_scan", "add_total")
+           "madd_scan", "add_scan", "add_total", "compress")
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_SECONDS = None  # wall time of this process's nvcc build, if it ran one
 BUILD_LOG = ""  # nvcc's output for the library in use (ptxas registers and spills)
@@ -151,8 +154,10 @@ def _lib():
         lib.bb_point_double.argtypes = [vp, vp, ll, vp]
         lib.bb_double_chain.argtypes = [vp, vp, ll, ci, ci, vp]
         lib.bb_point_scan.argtypes = [ci, ci, vp, vp, vp, ll, ci, vp]
+        lib.bb_compress.argtypes = [vp, vp, ll, vp]
         for fn in (lib.bb_init, lib.bb_mul_rows, lib.bb_sqr_chain, lib.bb_point_add,
-                   lib.bb_point_double, lib.bb_double_chain, lib.bb_point_scan):
+                   lib.bb_point_double, lib.bb_double_chain, lib.bb_point_scan,
+                   lib.bb_compress):
             fn.restype = ci
         _LIB = lib
     return _LIB
@@ -485,3 +490,37 @@ def add_total(items: torch.Tensor, R: int) -> torch.Tensor:
     if not items.is_cuda:
         return add_total_ref(items, R)
     return _scan_op("add_total", _LEAF_ADD, _MODE_TOTALS, items, R)[1]
+
+
+# ---------------------------------------------------------------------------
+# Ristretto compression of [..., 4, NLIMBS] points
+# ---------------------------------------------------------------------------
+
+ENCODING_WORDS = 8  # int32 words of one 32-byte encoding
+
+
+def compress_ref(points: torch.Tensor) -> torch.Tensor:
+    """Plain version of `compress`: `ristretto.compress`, then the canonical
+    s as the little-endian words of its 32 bytes."""
+    from . import ristretto
+
+    enc = limb.limbs_to_bytes_le(ristretto.compress(points))  # [..., 32] uint8
+    return torch.from_numpy(enc.view(np.int32)).to(points.device)
+
+
+def compress(points: torch.Tensor) -> torch.Tensor:
+    """[..., 4, NLIMBS] extended points -> [..., ENCODING_WORDS] int32: each
+    point's 32-byte Ristretto encoding as little-endian words (on the host,
+    `.view(np.uint8)` of the read gives the bytes).  One kernel launch on a
+    CUDA tensor (contiguous, 16-byte aligned), `compress_ref` on a CPU tensor."""
+    if not points.is_cuda:
+        return compress_ref(points)
+    shape = points.shape
+    if tuple(shape[-2:]) != (4, NLIMBS):
+        raise ValueError(f"compress takes [..., 4, {NLIMBS}] points, got {tuple(shape)}")
+    _check(shape, points, vector_loads=True)
+    out = torch.empty((*shape[:-2], ENCODING_WORDS), dtype=torch.int32, device=points.device)
+    n = out.numel() // ENCODING_WORDS
+    if n:
+        _launch("compress", "bb_compress", points.device, points.data_ptr(), out.data_ptr(), n)
+    return out

@@ -7,9 +7,9 @@ that stand for 32-bit and 64-bit words: `u32` / `u64` assert that a value a
 C word would hold has not wrapped (stronger than masking: the header relies
 on no wrap), and the casts that do drop bits are written as explicit masks.
 The point formulas of csrc/edwards_kernels.cu (pt_add, pt_madd, pt_double,
-the R-step scan, the doubling chain), its squaring chain and its copy of a
-block's rows through shared memory are modelled on top and held to
-utils/curve_host.py and to Python integers.
+the R-step scan, the doubling chain), its squaring chain, its Ristretto
+compression and its copy of a block's rows through shared memory are
+modelled on top and held to utils/curve_host.py and to Python integers.
 
 The constants the model uses are read out of the header itself, so the two
 cannot drift apart.
@@ -17,19 +17,22 @@ cannot drift apart.
 
 import random
 import re
+import sys
 from pathlib import Path
 
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from dusk_blindbidproof_tpu_torch.utils import curve_host as host
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from dusk_blindbidproof_tpu_torch.utils import curve_host as host  # noqa: E402
 
 P = host.P
-HEADER = (
-    Path(__file__).resolve().parents[1]
-    / "dusk_blindbidproof_tpu_torch" / "csrc" / "fe25519.cuh"
-).read_text()
+HEADER = (ROOT / "dusk_blindbidproof_tpu_torch" / "csrc" / "fe25519.cuh").read_text()
 
 NL10, ROW = 10, 21
 
@@ -60,8 +63,9 @@ def fe_limb_of(bit):
     return (2 * bit) // 51
 
 
-def _header_d2():
-    body = re.search(r"fe_d2\(\)\s*\{\s*return Fe\{\{([^}]*)\}\}", HEADER).group(1)
+def _header_fe(name):
+    """The limbs of the constant the header's `name()` returns."""
+    body = re.search(name + r"\(\)\s*\{\s*return Fe\{\{([^}]*)\}\}", HEADER).group(1)
     return [int(t.strip().rstrip("u")) for t in body.split(",")]
 
 
@@ -74,7 +78,9 @@ def _header_two_p():
     return [first if i == 0 else (odd if i & 1 else even) for i in range(NL10)]
 
 
-D2 = _header_d2()
+D2 = _header_fe("fe_d2")
+SQRT_M1 = _header_fe("fe_sqrt_m1")
+INVSQRT_A_MINUS_D = _header_fe("fe_invsqrt_a_minus_d")
 TWO_P = _header_two_p()
 
 
@@ -206,6 +212,64 @@ def fe_to_words(a):
 fe_store_canon = fe_store_row = fe_to_words  # the header's two ways to place the words
 
 
+def fe_to_le_words(a):
+    """-> the canonical value's 8 little-endian 32-bit words."""
+    h = fe_canon(a)
+    out, acc, n = [], 0, 0
+    for i in range(NL10):
+        acc = u64(acc | (h[i] << n))
+        n += fe_bits(i)
+        if n >= 32:
+            out.append(acc & 0xFFFFFFFF)
+            acc >>= 32
+            n -= 32
+    out.append(u32(acc))
+    return out
+
+
+ZERO, ONE = [0] * NL10, [1] + [0] * (NL10 - 1)
+
+
+def fe_neg(a):
+    return fe_carry(fe_sub(ZERO, a))
+
+
+def fe_is_neg(a):
+    return bool(fe_canon(a)[0] & 1)
+
+
+def fe_eq(a, b):
+    return fe_canon(a) == fe_canon(b)
+
+
+def fe_select(c, a, b):
+    return list(a) if c else list(b)
+
+
+def fe_abs(a):
+    return fe_select(fe_is_neg(a), fe_neg(a), a)
+
+
+def fe_pow2k(x, k):
+    for _ in range(k):
+        x = fe_sqr(x)
+    return x
+
+
+def fe_pow_250_1(x):
+    t0 = fe_sqr(x)
+    t1 = fe_mul(fe_pow2k(t0, 2), x)
+    t2 = fe_mul(t0, t1)
+    t3 = fe_mul(fe_sqr(t2), t1)
+    t4 = fe_mul(fe_pow2k(t3, 5), t3)
+    t5 = fe_mul(fe_pow2k(t4, 10), t4)
+    t6 = fe_mul(fe_pow2k(t5, 20), t5)
+    t7 = fe_mul(fe_pow2k(t6, 10), t4)
+    t8 = fe_mul(fe_pow2k(t7, 50), t7)
+    t9 = fe_mul(fe_pow2k(t8, 100), t8)
+    return fe_mul(fe_pow2k(t9, 50), t7)
+
+
 # --- csrc/edwards_kernels.cu: the point formulas on that core ---------------
 
 
@@ -272,6 +336,44 @@ def double_chain(point_rows, windows, steps):
         acc = pt_double(acc)
         out.append([fe_store_canon(c) for c in acc])
     return out
+
+
+def compress_u(point_rows):
+    y, z = fe_load(point_rows[1]), fe_load(point_rows[2])
+    return fe_mul(fe_add(z, y), fe_sub(z, y)), fe_mul(fe_load(point_rows[0]), y)
+
+
+def ristretto_s(point_rows):
+    u1, u2 = compress_u(point_rows)
+    v = fe_mul(u1, fe_sqr(u2))
+    v3 = fe_mul(fe_sqr(v), v)
+    w250 = fe_pow_250_1(fe_mul(fe_sqr(v3), v))
+    u1, u2 = compress_u(point_rows)
+    v = fe_mul(u1, fe_sqr(u2))
+    v3 = fe_mul(fe_sqr(v), v)
+    p58 = fe_mul(fe_pow2k(w250, 2), fe_mul(fe_sqr(v3), v))
+    r = fe_mul(v3, p58)
+    check = fe_mul(v, fe_sqr(r))
+    flipped = fe_eq(check, fe_neg(ONE))
+    flipped_i = fe_eq(check, fe_neg(SQRT_M1))
+    r = fe_select(flipped or flipped_i, fe_mul(r, SQRT_M1), r)
+    inv = fe_abs(r)
+    den1, den2 = fe_mul(inv, u1), fe_mul(inv, u2)
+    t = fe_load(point_rows[3])
+    z_inv = fe_mul(fe_mul(den1, den2), t)
+    rotate = fe_is_neg(fe_mul(t, z_inv))
+    x0, y0 = fe_load(point_rows[0]), fe_load(point_rows[1])
+    x = fe_select(rotate, fe_mul(y0, SQRT_M1), x0)
+    y = fe_select(rotate, fe_mul(x0, SQRT_M1), y0)
+    den_inv = fe_select(rotate, fe_mul(den1, INVSQRT_A_MINUS_D), den2)
+    y = fe_select(fe_is_neg(fe_mul(x, z_inv)), fe_neg(y), y)
+    return fe_abs(fe_mul(den_inv, fe_sub(fe_load(point_rows[2]), y)))
+
+
+def ristretto_compress_kernel(point_rows):
+    """ristretto_compress_kernel for one thread: the encoding's bytes."""
+    words = fe_to_le_words(ristretto_s(point_rows))
+    return b"".join(w.to_bytes(4, "little") for w in words)
 
 
 def sqr_chain(words, k):
@@ -389,6 +491,7 @@ rows = st.lists(st.integers(0, 8192), min_size=ROW, max_size=ROW)
 
 def test_header_constants():
     assert value(D2) == 2 * host.D % P
+    assert value(SQRT_M1) == host.SQRT_M1 and value(INVSQRT_A_MINUS_D) == host.INVSQRT_A_MINUS_D
     assert value(TWO_P) == 2 * P
     assert [fe_off(i) for i in range(NL10)] == [0, 26, 51, 77, 102, 128, 153, 179, 204, 230]
     for bit in range(255):
@@ -622,6 +725,71 @@ def test_sqr_chain_model_edges(name, k):
 @given(rows, st.sampled_from([2, 3, 10, 20]))
 def test_sqr_chain_model_random_rows(words, k):
     assert sqr_chain(words, k) == limbs13(pow(from_limbs13(words), 2**k, P))
+
+
+# --- Ristretto compression -----------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["0", "1", "p-1", "2^255-1", "2^273-1", "all-8192"])
+def test_le_words_and_signs_edges(name):
+    v = from_limbs13(EDGES[name]) % P
+    x = fe_load(EDGES[name])
+    words = fe_to_le_words(x)
+    assert len(words) == 8 and b"".join(w.to_bytes(4, "little") for w in words) == v.to_bytes(
+        32, "little")
+    assert fe_is_neg(x) == (v & 1 == 1)
+    n = fe_neg(x)
+    assert in_class_r(n) and value(n) % P == -v % P
+    assert fe_eq(n, fe_load(limbs13(-v % P))) and fe_eq(x, x)
+    assert not fe_eq(x, fe_load(limbs13((v + 1) % P)))
+    assert not fe_is_neg(fe_abs(x)) and value(fe_abs(x)) % P in (v, -v % P)
+
+
+@settings(max_examples=20, deadline=None)
+@given(rows)
+def test_pow_250_1_model_random_rows(words):
+    v = from_limbs13(words)
+    assert from_limbs13(fe_store_canon(fe_pow_250_1(fe_load(words)))) == pow(v, 2**250 - 1, P)
+
+
+def _torsion4():
+    return [host.EdwardsPoint(0, 1, 1, 0), host.EdwardsPoint(host.SQRT_M1, 0, 1, 0),
+            host.EdwardsPoint(0, P - 1, 1, 0), host.EdwardsPoint(P - host.SQRT_M1, 0, 1, 0)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ristretto_compress_model_vs_host(seed):
+    """Basepoint multiples in projective coordinates with Z != 1, each plus
+    every point of the 4-torsion: the four rows share one encoding, and
+    between them they rotate and negate."""
+    (p,) = _host_points(600 + seed, 1)
+    want = host.ristretto_compress(p)
+    for k, t in enumerate(_torsion4()):
+        q = p + t
+        assert ristretto_compress_kernel(_ext_rows(q, 3 + k + seed)) == want, k
+
+
+def test_ristretto_compress_model_counts_the_bound_s_operations(monkeypatch):
+    """chip_smoke.py's bound counts 258 squares and 34 products a point."""
+    model, counts = sys.modules[__name__], {"fe_sqr": 0, "fe_mul": 0}
+    for name in counts:
+        def counting(*args, _fn=getattr(model, name), _name=name):
+            counts[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(model, name, counting)
+    (p,) = _host_points(610, 1)
+    ristretto_compress_kernel(_ext_rows(p, 3))
+    assert (counts["fe_sqr"], counts["fe_mul"]) == (chip_smoke.COMPRESS_SQRS,
+                                                    chip_smoke.COMPRESS_MULS)
+
+
+def test_ristretto_compress_model_on_identity_and_widest_rows():
+    assert ristretto_compress_kernel(IDENTITY_ROWS) == bytes(32)
+    assert ristretto_compress_kernel(_ext_rows(host.EdwardsPoint(0, 1, 1, 0), 5)) == bytes(32)
+    v = from_limbs13(ALL_8192) % P
+    want = host.ristretto_compress(host.EdwardsPoint(v, v, v, v))
+    assert ristretto_compress_kernel([ALL_8192] * 4) == want
 
 
 # --- the row tile --------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1 mul_rows and its squaring chain, K3 add, K4 double
-and its doubling chain, and the R-step scans madd_scan (K2 leaf), add_scan,
-add_total) against their plain PyTorch versions.
+and its doubling chain, the R-step scans madd_scan (K2 leaf), add_scan,
+add_total, and Ristretto compression) against their plain PyTorch versions.
 
 This file imports neither jax nor the JAX package, so it also runs on a GPU
 machine without them:
@@ -11,7 +11,9 @@ The kernel tests need a card (marker `cuda`) and skip without one; the
 test that runs every wrapper on cuda:1 while cuda:0 is current needs two.
 The kernels return canonical limbs, so each is held to `canon(plain)`
 exactly, on random rows, all-8192 rows (the largest input the plain engine
-hands over, limb 20 included) and identity points.  Without a card, a
+hands over, limb 20 included) and identity points.  Compression, kernel and
+plain version alike, is held byte for byte to curve_host's
+`ristretto_compress` on sets of points chosen for its branches.  Without a card, a
 stand-in for the current device holds every launch to a guard of its
 operands' card.
 """
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from dusk_blindbidproof_tpu_torch.ops import edwards, fused, limb
+from dusk_blindbidproof_tpu_torch.utils import curve_host as host
 
 # small tensors: one intra-op thread each, so parallel test workers do not
 # oversubscribe the cores
@@ -224,6 +227,160 @@ def test_scan_wrappers_raise_on_what_the_kernel_does_not_take(cuda, name):
     assert fused.LAUNCHES[name] == before
 
 
+# ---------------------------------------------------------------------------
+# Ristretto compression
+# ---------------------------------------------------------------------------
+
+# the 4-torsion of the curve: P + T has P's Ristretto encoding for each T
+TORSION4 = [host.EdwardsPoint(0, 1, 1, 0), host.EdwardsPoint(host.SQRT_M1, 0, 1, 0),
+            host.EdwardsPoint(0, host.P - 1, 1, 0),
+            host.EdwardsPoint(host.P - host.SQRT_M1, 0, 1, 0)]
+
+
+def _basepoint_multiples(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [host.ED25519_BASEPOINT.scalar_mul(int(k)) for k in rng.integers(1, 2**62, n)]
+
+
+def _rows_of(points, scale: int = 1) -> torch.Tensor:
+    """Host points -> [n, 4, NLIMBS] rows, each coordinate times `scale`
+    (the same point in other projective coordinates)."""
+    return torch.from_numpy(np.stack([
+        np.stack([limb.int_to_limbs(c * scale % host.P) for c in (p.X, p.Y, p.Z, p.T)])
+        for p in points]))
+
+
+def _host_encodings(rows: torch.Tensor) -> list[bytes]:
+    """curve_host's compression of every [4, NLIMBS] row, read as integers."""
+    return [host.ristretto_compress(host.EdwardsPoint(*(limb.limbs_to_int(c) for c in row)))
+            for row in rows.reshape(-1, 4, limb.NLIMBS).cpu().numpy()]
+
+
+def _encoding_bytes(words: torch.Tensor) -> list[bytes]:
+    return [e.tobytes() for e in words.cpu().numpy().reshape(-1, 8).view(np.uint8)]
+
+
+def _compress_branches(pt) -> tuple:
+    """(rotate, Y negated, s negated) as curve_host.ristretto_compress takes them."""
+    P = host.P
+    X, Y, Z, T = pt.X % P, pt.Y % P, pt.Z % P, pt.T % P
+    u1, u2 = (Z + Y) * (Z - Y) % P, X * Y % P
+    inv = host.invsqrt(u1 * u2 * u2 % P)[1]
+    den1, den2 = inv * u1 % P, inv * u2 % P
+    z_inv = den1 * den2 * T % P
+    rotate = host._is_neg(T * z_inv)
+    if rotate:
+        X, Y, den = Y * host.SQRT_M1 % P, X * host.SQRT_M1 % P, den1 * host.INVSQRT_A_MINUS_D
+    else:
+        den = den2
+    flip = host._is_neg(X * z_inv)
+    Y = -Y % P if flip else Y
+    return rotate, flip, host._is_neg(den * (Z - Y))
+
+
+def _branch_points() -> list:
+    """Points P + T, T in the 4-torsion, that take each of compression's
+    branches: rotate or not, times Y negated or not, times s negated or not."""
+    found = {}
+    for k in range(1, 200):
+        base = host.ED25519_BASEPOINT.scalar_mul(k)
+        for t in TORSION4:
+            pt = base + t
+            found.setdefault(_compress_branches(pt), pt)
+        if len(found) == 8:
+            return [found[key] for key in sorted(found)]
+    raise AssertionError(f"branches never taken: {sorted(found)}")
+
+
+def compress_set(name: str) -> torch.Tensor:
+    """[n, 4, NLIMBS] rows of one set that compression is held to."""
+    if name == "add-outputs":  # Z != 1: the canonical output of K3's plain version
+        p, q = _basepoint_multiples(31, 12), _basepoint_multiples(32, 12)
+        return limb.canon(limb.FP, fused.add_ref(_rows_of(p, 3), _rows_of(q, 5)))
+    if name == "identity":
+        return torch.cat([edwards.identity((3,)), _rows_of([host.EdwardsPoint(0, 1, 1, 0)], 7)])
+    if name == "torsion-representatives":  # four rows, one encoding
+        (p,) = _basepoint_multiples(33, 1)
+        return _rows_of([p + t for t in TORSION4], 11)
+    if name == "branches":
+        return _rows_of(_branch_points(), 13)
+    if name == "all-8192":  # no curve point; the formula mod p all the same
+        return torch.full((2, 4, limb.NLIMBS), 8192, dtype=torch.int32)
+    raise KeyError(name)
+
+
+COMPRESS_SETS = ("add-outputs", "identity", "torsion-representatives", "branches", "all-8192")
+
+
+def test_compress_sets_take_what_they_are_named_for():
+    torsion = _host_encodings(compress_set("torsion-representatives"))
+    assert len(set(torsion)) == 1
+    assert set(_host_encodings(compress_set("identity"))) == {bytes(32)}
+    branches = {_compress_branches(pt) for pt in _branch_points()}
+    assert len(branches) == 8
+    assert not torch.all(compress_set("add-outputs")[:, 2] == torch.from_numpy(
+        limb.int_to_limbs(1)))
+
+
+@pytest.mark.parametrize("name", COMPRESS_SETS)
+def test_compress_ref_matches_host(name):
+    rows = compress_set(name)
+    got = fused.compress_ref(rows)
+    assert got.shape == (rows.shape[0], 8) and got.dtype == torch.int32
+    assert _encoding_bytes(got) == _host_encodings(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPRESS_SETS)
+def test_compress_kernel_matches_host(cuda, name):
+    rows = compress_set(name)
+    before = fused.LAUNCHES["compress"]
+    got = fused.compress(rows.to(cuda))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["compress"] == before + 1
+    assert got.shape == (rows.shape[0], 8) and got.dtype == torch.int32
+    assert _encoding_bytes(got) == _host_encodings(rows)
+    assert torch.equal(got.cpu(), fused.compress_ref(rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 8), (256, 2), (16, 2)],
+                         ids=["commitments-256", "ipa-round-256", "ipa-round-16"])
+def test_compress_kernel_at_the_main_path_shapes(cuda, shape):
+    """[B, k] points as the prover hands them over: sums of basepoint
+    multiples made on the card by K3, so that Z is no longer 1."""
+    n = shape[0] * shape[1]
+    pts = _rows_of(_basepoint_multiples(34, 64)).to(cuda)
+    idx = torch.arange(n, device=cuda)
+    rows = fused.add(pts[idx % 64], pts[(7 * idx // 64 + idx) % 64]).view(*shape, 4, limb.NLIMBS)
+    before = fused.LAUNCHES["compress"]
+    got = fused.compress(rows)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["compress"] == before + 1
+    assert got.shape == (*shape, 8)
+    assert _encoding_bytes(got) == _host_encodings(rows)
+
+
+@pytest.mark.cuda
+def test_compress_refuses_what_the_kernel_does_not_take(cuda):
+    p = _rows(25, (4, 8, 4, limb.NLIMBS)).to(cuda)
+    before = fused.LAUNCHES["compress"]
+    with pytest.raises(ValueError):
+        fused.compress(p[..., :20].contiguous())  # not [..., 4, 21] points
+    with pytest.raises(ValueError):
+        fused.compress(p.transpose(0, 1))  # not contiguous
+    with pytest.raises(TypeError):
+        fused.compress(p.long())
+    shifted = torch.zeros(limb.NLIMBS + p.numel(), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # contiguous, one 84-byte row off the 16-byte grid
+        fused.compress(shifted[limb.NLIMBS :].view(p.shape))
+    assert fused.LAUNCHES["compress"] == before
+    ok = fused.compress(*fused.kernel_operands(p.transpose(0, 1)))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["compress"] == before + 1
+    assert torch.equal(ok.transpose(0, 1).cpu(), fused.compress_ref(p.cpu()))
+
+
 def test_cpu_tensors_take_the_plain_versions():
     a, b = _rows(7, (16, limb.NLIMBS)), _rows(8, (16, limb.NLIMBS))
     p, q = _rows(9, (5, 4, limb.NLIMBS)), _rows(10, (5, 4, limb.NLIMBS))
@@ -234,6 +391,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(fused.double_chain(p, 3, 2), fused.double_chain_ref(p, 3, 2))
     assert torch.equal(fused.sqr_chain(limb.FP, a, 3), fused.sqr_chain_ref(limb.FP, a, 3))
     assert torch.equal(fused.madd_scan(p[:4], 2)[1], fused.madd_scan_ref(p[:4], 2)[1])
+    assert torch.equal(fused.compress(p), fused.compress_ref(p))
     items = _rows(13, (2, 12, 4, limb.NLIMBS))
     for name, (kern, ref, _) in SCAN_KERNELS.items():
         for g, w in zip(_as_tuple(kern(items, 4)), _as_tuple(ref(items, 4))):
@@ -253,7 +411,7 @@ def test_cpu_tensors_take_the_plain_versions():
 ENTRIES = {"mul_rows_fp": "bb_mul_rows", "mul_rows_fl": "bb_mul_rows",
            "sqr_chain": "bb_sqr_chain", "add": "bb_point_add", "double": "bb_point_double",
            "double_chain": "bb_double_chain", "madd_scan": "bb_point_scan",
-           "add_scan": "bb_point_scan", "add_total": "bb_point_scan"}
+           "add_scan": "bb_point_scan", "add_total": "bb_point_scan", "compress": "bb_compress"}
 
 
 class _Cards:
@@ -338,7 +496,8 @@ def second_card():
 
 
 def _wrapper_cases(name):
-    """(kernel call, plain call) of one wrapper, on CPU operands."""
+    """(kernel call, plain call, the modulus its output is canonical in, or
+    None for encodings) of one wrapper, on CPU operands."""
     rows, rows2 = _rows(21, (300, limb.NLIMBS)), _rows(24, (300, limb.NLIMBS))
     pts, other = _rows(22, (3, 64, 4, limb.NLIMBS)), _rows(23, (3, 64, 4, limb.NLIMBS))
     pts[0, 1] = edwards.identity()
@@ -356,6 +515,8 @@ def _wrapper_cases(name):
     if name == "double_chain":
         return (lambda d: fused.double_chain(pts.to(d), 3, 2),
                 lambda: fused.double_chain_ref(pts, 3, 2), limb.FP)
+    if name == "compress":
+        return lambda d: fused.compress(pts.to(d)), lambda: fused.compress_ref(pts), None
     kern, ref, _ = SCAN_KERNELS[name]
     return lambda d: kern(pts.to(d), 32), lambda: ref(pts, 32), limb.FP
 
@@ -372,7 +533,7 @@ def test_wrapper_runs_on_a_card_that_is_not_current(second_card, name):
     torch.cuda.synchronize(second_card)
     assert torch.cuda.current_device() == 0
     assert fused.LAUNCHES[name] == before + 1
-    want = [limb.canon(ctx, w) for w in _as_tuple(ref())]
+    want = [w if ctx is None else limb.canon(ctx, w) for w in _as_tuple(ref())]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.device == second_card
