@@ -25,8 +25,7 @@
 //   bb_sqr_chain       <- the mod-p product as the fori_loop of _pow2k drives
 //                         it (dusk_blindbidproof_tpu/ops/ristretto.py:26-33)
 //   bb_compress        <- no TPU kernel: the host's per-point compression
-//                         (dusk_blindbidproof_tpu/models/bulletproofs.py,
-//                         _compress_host)
+//                         (dusk_blindbidproof_tpu/models/bulletproofs.py:119)
 //
 // Design: one thread per item (one product, one point op, one block of R
 // consecutive items of a scan, or one point or row of a chain); an item's
@@ -377,11 +376,10 @@ __device__ __forceinline__ w::Fe ristretto_s(const int4* __restrict__ item) {
 // out[i] = the Ristretto encoding of p[i]: 32 bytes as 8 little-endian words,
 // one thread a point.  Replaces no TPU kernel: the JAX package compresses the
 // prover's points on the host, in Python integers, one at a time
-// (dusk_blindbidproof_tpu/models/bulletproofs.py, _compress_host), as the
-// port's CPU prover still does.  It serves the prover's four
-// transcript boundaries (the commitments V, A_I1 A_O1 S1, the T_i, each IPA
-// round's L and R): one launch on the whole batch's points, and only the
-// encodings cross to the host.
+// (dusk_blindbidproof_tpu/models/bulletproofs.py:119).  It serves the
+// prover's four transcript boundaries (the commitments V, A_I1 A_O1 S1, the
+// T_i, each IPA round's L and R): one launch on the whole batch's points, and
+// only the encodings cross to the host.
 //
 // What bounds it: the operations, 258 squares and 34 products a point (the
 // chain to 2^250 - 1 is 249 squares and 10 products) against 368 bytes (the

@@ -7,10 +7,9 @@ The same phase structure as the JAX package's engine:
     t-polynomial, inner-product folds) runs on the device over 13-bit-limb
     tensors (ops.limb / ops.msm), batched over independent proofs;
   * the Merlin transcript lives on the host; between device phases only
-    the points' 32-byte Ristretto encodings (compressed on the card; on the
-    CPU, canonical point limbs compressed on the host) and challenge scalars
-    cross, and the whole batch advances its transcripts in lockstep at each
-    boundary;
+    the points' 32-byte Ristretto encodings (compressed on the device) and
+    challenge scalars cross, and the whole batch advances its transcripts in
+    lockstep at each boundary;
   * the inner-product argument never folds generator vectors: coefficient
     vectors (c_G, c_H) accumulate the challenge products, so every L/R
     commitment is a fixed-base MSM against the window tables.
@@ -49,7 +48,6 @@ import torch
 from ..ops import edwards, fused, limb, msm, ristretto
 from ..ops.limb import FL, FP, NLIMBS
 from ..parallel import mesh as pmesh
-from ..utils import curve_host as chost
 from ..utils.curve_host import L, scalar_invert
 from ..utils.merlin import Transcript
 from ..utils.profiling import span
@@ -97,45 +95,16 @@ def _host(x: torch.Tensor) -> np.ndarray:
         return x.cpu().numpy()
 
 
-def _compress_host(arr: np.ndarray) -> list[bytes]:
-    """[..., 4, NLIMBS] CANONICAL point limbs (host numpy) -> flat list of
-    32-byte Ristretto encodings, per point in host integers: the CPU path of
-    the prover's compression (a CUDA prover compresses on the card,
-    `DEVICE_COMPRESS`)."""
-    out = []
-    with span("host.compress"):
-        for row in np.asarray(arr).reshape(-1, 4, NLIMBS):
-            pt = chost.EdwardsPoint(*[limb.limbs_to_int(c) for c in row])
-            out.append(chost.ristretto_compress(pt))
-    return out
-
-
-def _compress_kernel(points: torch.Tensor) -> torch.Tensor:
-    return fused.compress(*fused.kernel_operands(points))
-
-
-# The prover's compression on a device, by device type: [B, k, 4, NLIMBS]
-# points -> [B, k, 8] int32 words of their encodings, of which alone the
-# host reads.  A device type without an entry (the CPU) hands the points'
-# limbs to the host, which compresses them (`_compress_host`).
-DEVICE_COMPRESS = {"cuda": _compress_kernel}
-
-
 def _read_points(points: torch.Tensor) -> np.ndarray:
-    """The host's read of a device phase's [B, k, 4, NLIMBS] points: the
-    [B, k, 32] uint8 encodings where the device compresses, else the limbs.
-    `_encodings` turns a row of either into bytes."""
-    compress = DEVICE_COMPRESS.get(points.device.type)
-    if compress is None:
-        return _host(points)
-    return _host(compress(points)).view(np.uint8)
+    """The host's read of a device phase's [B, k, 4, NLIMBS] points: their
+    [B, k, 32] uint8 Ristretto encodings, compressed by `fused.compress` (one
+    launch on a card, its plain version on the CPU)."""
+    return _host(fused.compress(*fused.kernel_operands(points))).view(np.uint8)
 
 
 def _encodings(row: np.ndarray) -> list[bytes]:
     """One proof's row of `_read_points` -> its 32-byte encodings."""
-    if row.dtype == np.uint8:
-        return [e.tobytes() for e in row]
-    return _compress_host(row)
+    return [e.tobytes() for e in row]
 
 
 def _limb_row_to_int(row) -> int:
@@ -526,9 +495,12 @@ class _MeshRows:
     the contiguous rows of its bids index, on the mesh's device; the results
     are gathered over the bids axis, so every rank returns the full batch's in
     batch order, byte-identical to mesh=None.  A rank advances the transcripts
-    of its own rows only; a rank with no rows still joins every gather."""
+    of its own rows only; a rank with no rows still joins every gather.
+    Both parties hold the generator tables of capacity `cap` and start each
+    of their rows' transcripts with the R1CS domain separator."""
 
-    def __init__(self, transcripts: list[Transcript], device, mesh):
+    def __init__(self, transcripts: list[Transcript], cap: int = GENS_CAPACITY_DEFAULT,
+                 device=None, mesh=None):
         if mesh is not None and device is not None:
             raise ValueError("with a mesh the device is the mesh's")
         self.mesh = mesh
@@ -540,25 +512,21 @@ class _MeshRows:
             self.device = mesh.device
             self.rows = pmesh.bid_rows(mesh, len(transcripts))
             self.transcripts = transcripts[self.rows]
-
-    def _gather(self, local: list) -> list:
-        return local if self.mesh is None else pmesh.gather_rows(self.mesh, local)
-
-
-class Prover(_MeshRows):
-    """Batched R1CS prover: construct with transcripts (one per proof in
-    the batch), commit values, then prove() against a compiled circuit."""
-
-    def __init__(self, transcripts: list[Transcript], cap: int = GENS_CAPACITY_DEFAULT,
-                 device=None, mesh=None):
-        super().__init__(transcripts, device, mesh)
         self.cap = cap
         self.tables = generator_tables(cap, self.device)
         for t in self.transcripts:
             r1cs_domain_sep(t)
 
+    def _gather(self, local: list) -> list:
+        return local if self.mesh is None else pmesh.gather_rows(self.mesh, local)
+
     def _ints(self, vals, shape=None) -> torch.Tensor:
         return _dev(limb.ints_to_limbs_fast(vals, shape), self.device)
+
+
+class Prover(_MeshRows):
+    """Batched R1CS prover: construct with transcripts (one per proof in
+    the batch), commit values, then prove() against a compiled circuit."""
 
     def commit_batch(self, values, blindings) -> list[list[bytes]]:
         """values, blindings: [B][m] python ints -> per-proof compressed
@@ -880,23 +848,12 @@ class Verifier(_MeshRows):
     """Batched R1CS verifier: replays the transcript schedule and evaluates
     the statement as one fixed-base MSM plus one small dynamic MSM."""
 
-    def __init__(self, transcripts: list[Transcript], cap: int = GENS_CAPACITY_DEFAULT,
-                 device=None, mesh=None):
-        super().__init__(transcripts, device, mesh)
-        self.cap = cap
-        self.tables = generator_tables(cap, self.device)
-        for t in self.transcripts:
-            r1cs_domain_sep(t)
-
     def commit_batch(self, commitments: list[list[bytes]]) -> None:
         """The whole batch's commitments; this process's rows are appended."""
         with span("verify.commit_V"):
             for t, row in zip(self.transcripts, commitments[self.rows]):
                 for c in row:
                     append_point(t, b"V", c)
-
-    def _ints(self, vals, shape=None) -> torch.Tensor:
-        return _dev(limb.ints_to_limbs_fast(vals, shape), self.device)
 
     def verify(self, circuit: CompiledCircuit, proofs: list[R1CSProof],
                commitments: list[list[bytes]], publics: np.ndarray) -> list[bool]:

@@ -2,22 +2,17 @@
 
 The STROBE duplex under the Merlin transcript is a small C++ shared library,
 `native/libbbnative.so`, shipped in the repository root.  This module loads
-it as it is; when it is missing or older than its source, the library is
-compiled with g++ into `build/native/` (never over the shipped copy).  If
-neither loads, `utils/merlin.py` keeps its pure-Python Keccak duplex: the
-fallback covers the host transcript only.
-
-Set BLINDBID_NO_NATIVE=1 to force the pure-Python path.
+it as it is; only if that fails is the library compiled with g++ into
+`build/native/` (never over the shipped copy) and loaded from there.  If
+neither loads, importing this module raises: the port has no other
+transcript core.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 import os
 import subprocess
-
-log = logging.getLogger("blindbid.native")
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 _SRC = os.path.join(_ROOT, "native", "strobe.cc")
@@ -35,36 +30,26 @@ class CStrobeState(ctypes.Structure):
     ]
 
 
-def _fresh(path: str) -> bool:
-    return os.path.exists(path) and (
-        not os.path.exists(_SRC) or os.path.getmtime(path) >= os.path.getmtime(_SRC)
-    )
-
-
-def _library_path() -> str:
-    if _fresh(_SHIPPED):
-        return _SHIPPED
-    if not _fresh(_BUILT):
-        os.makedirs(os.path.dirname(_BUILT), exist_ok=True)
-        subprocess.run(
-            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", _BUILT, _SRC],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-    return _BUILT
-
-
-def _load():
-    if os.environ.get("BLINDBID_NO_NATIVE"):
-        return None
+def _load() -> ctypes.CDLL:
+    """The shipped library, else one built from its source; raises
+    RuntimeError with both causes when neither loads."""
     try:
-        lib = ctypes.CDLL(_library_path())
-    except (OSError, subprocess.SubprocessError) as exc:
-        log.warning("native transcript core unavailable (%s); using Python", exc)
-        return None
-    lib.bb_keccak_f1600.argtypes = [ctypes.c_char_p]
-    lib.bb_keccak_f1600.restype = None
+        lib = ctypes.CDLL(_SHIPPED)
+    except OSError as shipped:
+        try:
+            os.makedirs(os.path.dirname(_BUILT), exist_ok=True)
+            subprocess.run(
+                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", _BUILT, _SRC],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+            lib = ctypes.CDLL(_BUILT)
+        except (OSError, subprocess.SubprocessError) as built:
+            raise RuntimeError(
+                f"native transcript core unavailable: {_SHIPPED}: {shipped}; "
+                f"building {_SRC}: {built}"
+            ) from built
     lib.bb_strobe_init.argtypes = [
         ctypes.POINTER(CStrobeState), ctypes.c_char_p, ctypes.c_size_t,
     ]
@@ -83,7 +68,8 @@ LIB = _load()
 
 
 class NativeStrobe128:
-    """Drop-in replacement for utils.merlin.Strobe128 backed by C++."""
+    """The STROBE-128 duplex exactly as merlin 1.3.0 implements it, backed
+    by the C++ core: the subset of STROBE ops merlin uses."""
 
     __slots__ = ("c",)
 
@@ -124,7 +110,3 @@ class NativeStrobe128:
             ctypes.byref(s.c), ctypes.byref(self.c), ctypes.sizeof(CStrobeState)
         )
         return s
-
-
-def native_available() -> bool:
-    return LIB is not None

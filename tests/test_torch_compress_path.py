@@ -1,14 +1,14 @@
 """The prover's compression path, on the CPU.
 
-A CUDA prover compresses the points of its four transcript boundaries (the
-commitments V; A_I1, A_O1, S1; T_1, T_3 .. T_6; each IPA round's L and R) on
-the card, one `fused.compress` launch a boundary, and reads back their
-encodings alone.  Here `bulletproofs.DEVICE_COMPRESS` points the CPU at the
-kernel's plain version, `fused.compress_ref`, so that a CPU prove takes that
-path: the frozen proofs come out byte for byte, the hook is called once a
-boundary in transcript order, and the host's compression is never called.
-Each test proves at full size on the CPU: about two and a half minutes at
-n = 2048 and one and a half at n = 1024, most of it the generator tables.
+The prover compresses the points of its four transcript boundaries (the
+commitments V; A_I1, A_O1, S1; T_1, T_3 .. T_6; each IPA round's L and R)
+through `fused.compress`, one call a boundary, and reads back their
+encodings alone: one kernel launch on a card, the plain version
+`fused.compress_ref` on the CPU.  Here a spy on `fused.compress` records the
+[B, k] point shapes of each call while the CPU prover proves at CAP <= 32:
+the calls come once a boundary in transcript order, and the proofs come out
+byte for byte (the JAX package's host oracle, the frozen cube vector).  The
+full-size frozen vectors take the same path in their `slow` tests.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
@@ -25,50 +24,76 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from dusk_blindbidproof_tpu_torch.models import blindbid  # noqa: E402
 from dusk_blindbidproof_tpu_torch.models import bulletproofs as bp  # noqa: E402
+from dusk_blindbidproof_tpu_torch.models import r1cs as tr1cs  # noqa: E402
 from dusk_blindbidproof_tpu_torch.ops import fused, limb  # noqa: E402
+from dusk_blindbidproof_tpu_torch.utils.merlin import Transcript  # noqa: E402
+from test_torch_ipa_sizes import jax_chain_proof  # noqa: E402
+from test_transcript_protocol import (  # noqa: E402
+    A_VAL,
+    BLIND,
+    CAP,
+    FROZEN_PROOF,
+    FROZEN_V,
+    LABEL,
+    cube_inputs,
+)
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-FROZEN_L4 = ROOT / "tests" / "data" / "blindbid_L4_seed42.hex"
 
 
 @pytest.fixture
-def device_path(monkeypatch):
-    """The CPU prover compresses through the device hook; returns the [B, k]
-    point shapes the hook was called with, in order."""
+def compress_calls(monkeypatch):
+    """`fused.compress` spied on: returns the [B, k] point shapes it was
+    called with, in order."""
     calls = []
+    compress = fused.compress
 
-    def compress(points):
+    def spy(points):
         assert points.shape[-2:] == (4, limb.NLIMBS)
         calls.append(tuple(points.shape[:-2]))
-        return fused.compress_ref(points)
+        return compress(points)
 
-    def no_host_compression(arr):
-        raise AssertionError("the host compressed points the device hook was to compress")
-
-    monkeypatch.setitem(bp.DEVICE_COMPRESS, "cpu", compress)
-    monkeypatch.setattr(bp, "_compress_host", no_host_compression)
+    monkeypatch.setattr(fused, "compress", spy)
     return calls
 
 
-def test_blindbid_l4_proof_through_the_device_hook(device_path):
-    req = blindbid.make_prove_request(
-        d=123456789, k=987654321, seed=55555,
-        pub_list_extra=[1000 + i for i in range(3)], toggle_pos=2)
-    proof = blindbid.prove_batch([req], rng=np.random.default_rng(42), device=CPU)[0]
-    assert blindbid.proof_blob(proof) == bytes.fromhex(FROZEN_L4.read_text().strip())
-    rounds = len(proof.r1cs.ipp_L)
-    assert rounds == 11
-    assert device_path == [(1, 8), (1, 3), (1, 5)] + [(1, 2)] * rounds
-
-
-def test_chain_n1024_proof_through_the_device_hook(device_path):
-    n = chip_smoke.CHAIN_SMALL
+def test_chain_proofs_through_fused_compress(compress_calls):
+    """n = cap = 16, B = 2: both proofs equal the JAX host oracle's."""
+    n, B = 16, 2
     artifact, *wit = chip_smoke.chain_inputs(n)
     circuit = bp.CompiledCircuit.compile(artifact, CPU)
-    _, proofs = chip_smoke.chain_prove(circuit, chip_smoke.chain_witness(n, 1, *wit), n, CPU)
-    assert proofs[0].to_bytes().hex() == chip_smoke.FROZEN_CHAIN.read_text().strip()
-    assert device_path == [(1, 1), (1, 3), (1, 5)] + [(1, 2)] * 10
+    commitments, proofs = chip_smoke.chain_prove(
+        circuit, chip_smoke.chain_witness(n, B, *wit), n, CPU)
+    want, want_commitments = jax_chain_proof(n, n)
+    assert commitments == [want_commitments] * B
+    assert [p.to_bytes() for p in proofs] == [want.to_bytes()] * B
+    assert compress_calls == [(B, 1), (B, 3), (B, 5)] + [(B, 2)] * 4
+
+
+def test_cube_proof_through_fused_compress(compress_calls):
+    """The CAP = 8 cube circuit (n_pad = 2, one IPA round): the frozen
+    vectors of tests/test_transcript_protocol.py."""
+    cs = tr1cs.VerifierCS()
+    a = cs.commit_var()
+    pub = cs.public_var()
+    _, _, o = cs.multiply(tr1cs.LC.of(a), tr1cs.LC.of(a))
+    _, _, o2 = cs.multiply(tr1cs.LC.of(o), tr1cs.LC.of(a))
+    cs.constrain(tr1cs.LC.of(o2) - pub)
+    circuit = bp.CompiledCircuit.compile(cs.artifact(), CPU)
+    a2, a3 = cube_inputs()
+    prover = bp.Prover([Transcript(LABEL)], cap=CAP, device=CPU)
+    commitments = prover.commit_batch([[A_VAL]], [[BLIND]])
+
+    def limbs(vals):
+        return limb.ints_to_limbs_fast(vals, (1, len(vals)))
+
+    witness = bp.ProverWitness(a_L=limbs([A_VAL, a2]), a_R=limbs([A_VAL, A_VAL]),
+                               a_O=limbs([a2, a3]), v=limbs([A_VAL]),
+                               v_blinding=limbs([BLIND]), publics=limbs([a3]))
+    proof = prover.prove(circuit, witness)[0]
+    assert commitments[0][0].hex() == FROZEN_V
+    assert proof.to_bytes().hex() == FROZEN_PROOF
+    assert compress_calls == [(1, 1), (1, 3), (1, 5), (1, 2)]

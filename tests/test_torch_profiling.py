@@ -274,7 +274,7 @@ def test_the_four_accounts_are_disjoint_and_cover_a_round_trip(spans, cheap_msms
     names = {r.name for r in recs}
     assert {"app.prove_batch", "app.verify_batch", "app.circuit", "app.blindings",
             "app.witness", "app.witness_limbs", "app.publics", "prove", "verify",
-            "device.h2d", "device.d2h", "host.compress", "prove.host_rng.transcript",
+            "device.h2d", "device.d2h", "prove.host_rng.transcript",
             "prove.host_rng.draw"} <= names
     assert {r.pass_id for r in recs if r.name == "prove"} != {
         r.pass_id for r in recs if r.name == "verify"}
