@@ -15,7 +15,7 @@ and device, and is made first.  Before it, the list is held to the generator
 capacity from its length alone (`check_list_len`): an empty list is refused
 with ValueError and one too long with ProofError, before any synthesis, table
 or kernel launch.  The witness is generated by a host routine mirroring the
-gadget's gate order.
+gadget's gate order, and crosses to the device as 8 words a value.
 """
 
 from __future__ import annotations
@@ -143,6 +143,20 @@ def blindbid_witness(req: ProveRequest):
     return a_L, a_R, a_O
 
 
+def witness_words(wires, rows, B: int, n_pad: int) -> np.ndarray:
+    """The wires of `blindbid_witness` for the batch rows `rows` as
+    [3, B, n_pad, 8] little-endian int32 words (a_L, a_R, a_O): the 32 bytes
+    of each canonical value, zero past the gates and in the rows not given (a
+    mesh rank's view).  The prover turns them into limbs on its device."""
+    buf = np.zeros((3, B, n_pad, 32), dtype=np.uint8)
+    for i, row in zip(rows, wires):
+        for w, wire in enumerate(row):
+            buf[w, i, : len(wire)] = np.frombuffer(
+                b"".join(v.to_bytes(32, "little") for v in wire), np.uint8
+            ).reshape(-1, 32)
+    return buf.view("<i4")
+
+
 def make_prove_request(
     d: int, k: int, seed: int, pub_list_extra: list[int], toggle_pos: int
 ) -> ProveRequest:
@@ -237,14 +251,8 @@ def prove_batch(
         rows = range(B)[prover.rows]  # the rows the prover reads
         with span("app.witness"):
             wires = [blindbid_witness(requests[i]) for i in rows]
-        with span("app.witness_limbs"):
-            aL = np.zeros((B, n_pad, limb.NLIMBS), dtype=np.int32)
-            aR = np.zeros_like(aL)
-            aO = np.zeros_like(aL)
-            for i, (l, rr, o) in zip(rows, wires):
-                aL[i, : len(l)] = limb.ints_to_limbs_fast(l)
-                aR[i, : len(rr)] = limb.ints_to_limbs_fast(rr)
-                aO[i, : len(o)] = limb.ints_to_limbs_fast(o)
+        with span("app.witness_words"):
+            aL, aR, aO = witness_words(wires, rows, B, n_pad)
             v = limb.ints_to_limbs_fast([v % L for row in values for v in row], (B, m))
             v_blinding = limb.ints_to_limbs_fast([g for row in blind_ints for g in row], (B, m))
         with span("app.publics"):

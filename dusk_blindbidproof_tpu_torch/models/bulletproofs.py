@@ -284,14 +284,28 @@ def generator_tables(cap: int, device: torch.device) -> GeneratorTables:
 
 @dataclass
 class ProverWitness:
-    """Per-batch witness arrays (host numpy limbs, canonical)."""
+    """Per-batch witness arrays on the host, canonical.  The wires a_L, a_R
+    and a_O come in either of two forms, told apart by the trailing
+    dimension: 8 little-endian int32 words a value (its 32 bytes viewed as
+    '<i4'), which become limbs on the prover's device
+    (`limb.limbs_from_words`), or NLIMBS strict limbs, which cross as they
+    are.  Any other trailing dimension raises ValueError before any copy."""
 
-    a_L: np.ndarray  # [B, n_pad, NLIMBS]
-    a_R: np.ndarray
-    a_O: np.ndarray
+    a_L: np.ndarray  # [B, n_pad, 8] words or [B, n_pad, NLIMBS] limbs
+    a_R: np.ndarray  # as a_L
+    a_O: np.ndarray  # as a_L
     v: np.ndarray  # [B, m, NLIMBS]
     v_blinding: np.ndarray  # [B, m, NLIMBS]
     publics: np.ndarray  # [B, n_pub, NLIMBS]
+
+
+def _check_wires(witness: ProverWitness) -> None:
+    """Raise ValueError unless each wire ends in 8 words or NLIMBS limbs."""
+    for name in ("a_L", "a_R", "a_O"):
+        last = getattr(witness, name).shape[-1]
+        if last not in (8, NLIMBS):
+            raise ValueError(f"{name}: trailing dimension {last}, "
+                             f"not 8 words or {NLIMBS} limbs a value")
 
 
 def _sample_scalar_bytes(rng: np.random.Generator, shape) -> np.ndarray:
@@ -555,10 +569,12 @@ class Prover(_MeshRows):
               seed: bytes = b"\x00" * 32) -> list[R1CSProof]:
         """The proofs of the whole batch; `witness` holds the whole batch's
         rows, of which a rank of a mesh reads its own alone.  A circuit larger
-        than the capacity raises ProofError before any work (on every rank of
-        a mesh alike, with no collective)."""
+        than the capacity raises ProofError, and a wire of another form than
+        words or limbs ValueError, before any work (on every rank of a mesh
+        alike, with no collective)."""
         with span("prove"):
             check_capacity(circuit.n_pad, self.cap)
+            _check_wires(witness)
             if self.mesh is None:
                 return self._prove_rows(circuit, witness, seed)
             local = []
@@ -605,7 +621,9 @@ class Prover(_MeshRows):
                 s_bytes[:, :, n1:] = 0
                 s_words = s_bytes.view("<i4")  # [2, B, n_pad, 8]
 
-        a_L, a_R, a_O = (_dev(x, dev) for x in (witness.a_L, witness.a_R, witness.a_O))
+        a_L, a_R, a_O = (limb.limbs_from_words(_dev(x, dev)) if x.shape[-1] == 8
+                         else _dev(x, dev)
+                         for x in (witness.a_L, witness.a_R, witness.a_O))
         s_L, s_R = limb.limbs_from_words(_dev(s_words, dev))
 
         with span("prove.phase_a"):
