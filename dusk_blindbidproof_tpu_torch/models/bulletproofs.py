@@ -951,10 +951,11 @@ class Verifier(_MeshRows):
         # dynamic points: V_j | T_k | A_I1 A_O1 S1 [A_I2 A_O2 S2] | L_j | R_j
         dyn_pts_bytes, dyn_scalars = [], []
         with span("verify.assemble"):
-            for i, (p, proof) in enumerate(zip(per, proofs)):
+            with span("verify.wV"):  # the committed values' weights, a row a proof
+                wvs = [host_wV(p["z"]) for p in per]
+            for i, (p, proof, wv) in enumerate(zip(per, proofs, wvs)):
                 x, r, u = p["x"], p["r"], p["u"]
                 x2 = x * x % L
-                wv = host_wV(p["z"])
                 row_pts = list(commitments[i])
                 row_scalars = [(-r * x2 * wv[j]) % L for j in range(len(commitments[i]))]
                 for k, tb in zip((1, 3, 4, 5, 6),

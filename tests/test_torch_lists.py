@@ -183,8 +183,9 @@ def mutated(proof, commitments):
     return [(proof, commitments), (t_x, commitments), (proof, v_j), (l_j, commitments)]
 
 
-@pytest.fixture(scope="module")
-def wide():
+def prove_wide():
+    """The port's proof of the wide circuit on the CPU: (circuit, commitments,
+    proof, the prover's 32-byte seed)."""
     artifact, v, blinds, a_L, a_R, a_O = wide_inputs(tr1cs)
     circuit = CompiledCircuit.compile(artifact, CPU)
     seed = np.random.default_rng(WIDE_SEED).bytes(32)
@@ -201,17 +202,13 @@ def wide():
         v=limb.ints_to_limbs_fast(v, (1, WIDE_M)),
         v_blinding=limb.ints_to_limbs_fast(blinds, (1, WIDE_M)),
         publics=np.zeros((1, 0, limb.NLIMBS), dtype=np.int32))
-    proof = prover.prove(circuit, witness, seed=seed)[0]
+    return circuit, commitments, prover.prove(circuit, witness, seed=seed)[0], seed
 
-    jart, *jwit = wide_inputs(jr1cs)
-    want, trace = oracle.host_prove(jart, JaxTranscript(WIDE_LABEL), *jwit, [], WIDE_N,
-                                    seed=seed)
-    cases = mutated(proof, commitments)
-    host = [oracle.host_verify(jart, JaxTranscript(WIDE_LABEL),
-                               JaxR1CSProof.from_bytes(p.to_bytes()), c, [], WIDE_N)
-            for p, c in cases]
 
-    # the port's verifier over the four cases as one batch, its MSM branches recorded
+def verify_wide(circuit, cases):
+    """The port's verdicts on `cases` ((proof, commitments) pairs) as one
+    batch, and the MSM branches its verifier took: (verdicts, bucket scans as
+    (niels, shape), bit-path point shapes)."""
     scans, bits = [], []
     bucket_scan_rows, bit_msm = msm._bucket_scan_rows, msm._bit_msm
 
@@ -231,6 +228,21 @@ def wide():
         mp.setattr(msm, "_bit_msm", recording_bits)
         port = verifier.verify(circuit, [p for p, _ in cases], batch,
                                np.zeros((len(cases), 0, limb.NLIMBS), dtype=np.int32))
+    return port, scans, bits
+
+
+@pytest.fixture(scope="module")
+def wide():
+    circuit, commitments, proof, seed = prove_wide()
+    jart, *jwit = wide_inputs(jr1cs)
+    want, trace = oracle.host_prove(jart, JaxTranscript(WIDE_LABEL), *jwit, [], WIDE_N,
+                                    seed=seed)
+    cases = mutated(proof, commitments)
+    host = [oracle.host_verify(jart, JaxTranscript(WIDE_LABEL),
+                               JaxR1CSProof.from_bytes(p.to_bytes()), c, [], WIDE_N)
+            for p, c in cases]
+    # the port's verifier over the four cases as one batch, its MSM branches recorded
+    port, scans, bits = verify_wide(circuit, cases)
     return dict(circuit=circuit, commitments=commitments, proof=proof, want=want,
                 want_commitments=trace.commitments, port=dict(zip(WIDE_CASES, port)),
                 host=dict(zip(WIDE_CASES, host)), scans=scans, bits=bits)

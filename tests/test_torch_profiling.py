@@ -25,6 +25,9 @@ from dusk_blindbidproof_tpu_torch.utils import profiling
 torch.set_num_threads(1)
 
 READERS = ("app.host_ms.batch", "device.wait_ms.batch", "limb.enqueue_ms.batch")
+# a cut across the accounts: the committed values' host spans, whole
+COMMIT = "commit.host_ms.batch"
+COMMIT_SPANS = ("prove.commit_V_host", "verify.commit_V", "verify.wV")
 MESH_READERS = ("mesh.collective_ms.batch", "mesh.rank_skew.batch")
 
 
@@ -168,9 +171,27 @@ def test_the_readers_on_a_synthetic_record():
     # a program without the spans: nothing to read, and no error
     bare = {"proofs": 4, "span_self_s": {"prove.phase_a": 1.0},
             "span_total_s": {"prove.host_rng": 1.0}}
-    for name in READERS:
+    for name in READERS + (COMMIT,):
         assert _reader(name).read(bare) is None
         assert _reader(name).read({"proofs": 0}) is None
+
+
+def test_the_committed_values_reader_on_a_synthetic_record():
+    reader = _reader(COMMIT)
+    record = {
+        "proofs": 4,
+        "span_total_s": {"prove.commit_V_host": 0.004, "verify.commit_V": 0.002,
+                         "verify.wV": 0.006, "verify.assemble": 0.5, "prove": 0.9},
+        "span_self_s": {"verify.commit_V": 1.0},  # not read: totals only
+    }
+    assert reader.read(record) == pytest.approx(3.0)
+    # a parent without `verify.wV` reads the two spans it has
+    parent = dict(record, span_total_s={"prove.commit_V_host": 0.004, "verify.commit_V": 0.002})
+    assert reader.read(parent) == pytest.approx(1.5)
+    # none of the three spans, or no proofs: nothing to read, and no error
+    assert reader.read(dict(record, span_total_s={"verify.assemble": 0.5})) is None
+    assert reader.read(dict(record, proofs=0)) is None
+    assert reader.read({}) is None
 
 
 def test_the_mesh_readers_on_a_synthetic_record():
@@ -278,6 +299,15 @@ def test_the_four_accounts_are_disjoint_and_cover_a_round_trip(spans, cheap_msms
             "prove.host_rng.draw"} <= names
     assert {r.pass_id for r in recs if r.name == "prove"} != {
         r.pass_id for r in recs if r.name == "verify"}
+    # the verifier's weights of the committed values: one span a verify call,
+    # inside verify.assemble, so inside the host account's whole span
+    by_index = {r.index: r for r in recs}
+    weights = [r for r in recs if r.name == "verify.wV"]
+    assert len(weights) == sum(1 for r in recs if r.name == "verify") == 1
+    for r in weights:
+        outer = by_index[r.parent]
+        assert outer.name == "verify.assemble"
+        assert outer.start_ns <= r.start_ns <= r.end_ns <= outer.end_ns
 
     acc = _accounts(recs)
     sizes = {k: sum(e - s for s, e in v) for k, v in acc.items()}
@@ -293,8 +323,11 @@ def test_the_four_accounts_are_disjoint_and_cover_a_round_trip(spans, cheap_msms
     for name, key in zip(READERS, ("app", "wait", "enqueue")):
         assert _reader(name).read(record) == pytest.approx(sizes[key] / 1e6 / B, rel=1e-6)
     assert host * 1e3 / B == pytest.approx(sizes["host"] / 1e6 / B, rel=1e-6)
+    commit = sum(r.end_ns - r.start_ns for r in recs if r.name in COMMIT_SPANS)
+    assert {r.name for r in recs} >= set(COMMIT_SPANS)
+    assert _reader(COMMIT).read(record) == pytest.approx(commit / 1e6 / B, rel=1e-6)
     # without the record's keys they read the same from the program's spans
-    for name in READERS:
+    for name in READERS + (COMMIT,):
         assert _reader(name).read({"proofs": B}) == _reader(name).read(record)
 
 
