@@ -22,6 +22,12 @@ Phases, in order; any failure exits non-zero:
      on the CPU, with the host's per-point compression timed beside it;
      kernel time from CUDA events around a replayed
      CUDA graph of wrapper calls, eager-loop and plain times from CUDA events;
+     b. the BlindBid witness (`witness_wires`: mimc_chain, then
+        witness_fanout) at WITNESS_CASES, 4 bids at B = 256, 1 and 16, 202
+        bids at B = 16, and a rank's 64 rows of B = 256: each launch
+        synchronised, two launches a call, the wires exact against the plain
+        version on the CPU; each kernel timed apart.  Phases 4 and 9 hold
+        every prove_batch to one launch of each and no plain call;
   3. the main path at B = 1: BlindBid prove at list length 4 with
      rng = default_rng(42) must give the frozen n = 2048 proof bytes,
      verify must accept it and reject a wrong seed, and the CAP = 8 cube
@@ -218,6 +224,7 @@ SOURCE = "dusk_blindbidproof_tpu_torch/csrc/edwards_kernels.cu"
 PLANES = "dusk_blindbidproof_tpu/ops/fused.py:220"
 SCALAR_MUL = "dusk_blindbidproof_tpu/ops/fused.py:328"
 HOST_COMPRESS = "dusk_blindbidproof_tpu/models/bulletproofs.py:119"
+HOST_WITNESS = "dusk_blindbidproof_tpu/models/blindbid.py blindbid_witness"
 REPLACES = {
     "mul_rows_fp": SCALAR_MUL,
     "mul_rows_fl": SCALAR_MUL,
@@ -229,7 +236,11 @@ REPLACES = {
     "add_scan": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:109",
     "add_total": f"{PLANES} as driven by dusk_blindbidproof_tpu/ops/msm.py:164",
     "compress": f"no TPU kernel: the host's per-point compression, {HOST_COMPRESS}",
+    "mimc_chain": f"no TPU kernel: the host's witness, {HOST_WITNESS}",
+    "witness_fanout": f"no TPU kernel: the host's witness, {HOST_WITNESS}",
 }
+# products of the witness's four hashes a proof: 90 rounds of four
+WITNESS_HASH_MULS = 4 * 90 * 4
 # Ristretto compression a point (ristretto_compress_kernel): squares and
 # products of its field chain, and the point read plus the encoding written
 COMPRESS_SQRS, COMPRESS_MULS = 258, 34
@@ -258,7 +269,15 @@ SQR_CHAIN_K = (100, 50, 2)  # runs of squarings in x^(2^252 - 3); the longest go
 # launches of a B = 16 round trip that the chains must have taken over: K4 is
 # left with the 3 x 12 Horner steps, K1 mod p with the products between chains
 LAUNCH_LIMITS = {"double": 40, "mul_rows_fp": 60}
-N_KERNELS = 11  # entry functions: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans, compress
+N_KERNELS = 13  # entry functions: 3 mul_rows, sqr_chain, add, double, double_chain, 3 scans, compress,
+# mimc_chain, witness_fanout
+# the kernels of the BlindBid witness, which the chain circuit (phase 7) bypasses
+WITNESS_KERNELS = ("mimc_chain", "witness_fanout")
+# phase 2b: the witness at the shapes of its callers, (B, list length, the rows
+# a rank proves or None); the first is the kernels line's
+WITNESS_CASES = ((256, 4, None), (1, 4, None), (16, 4, None), (16, 202, None),
+                 (256, 4, slice(64, 128)))
+WITNESS_REPS = 20
 TIMED_TRIPS = 5  # B = 16 round trips timed for the s/op median and spread
 # phase 5: connections opened at once, in this order; 16 is the service's cap,
 # 5 and 11 are batches that are not a power of two, 17 must split
@@ -454,6 +473,7 @@ def check_kernels(dev) -> dict:
     check_points(checks)
     check_scans(checks)
     check_compress(checks)
+    check_witness(checks)
     return checks.results
 
 
@@ -609,6 +629,110 @@ def check_compress(checks) -> None:
               f"{host_compress_ms(pts):.3f} ms", flush=True)
 
 
+def witness_inputs(reqs, dev):
+    """The committed values and publics of the requests as prove_batch makes
+    them: [n, 4 + L, NLIMBS] and [n, 3 + L, NLIMBS] limbs on `dev`."""
+    from dusk_blindbidproof_tpu_torch.ops import limb
+    from dusk_blindbidproof_tpu_torch.utils.curve_host import L
+
+    n, list_len = len(reqs), len(reqs[0].pub_list)
+    v = limb.ints_to_limbs_fast(
+        [x % L for r in reqs for x in [r.d, r.k, r.y, r.y_inv]
+         + [int(i == r.toggle) for i in range(list_len)]], (n, 4 + list_len))
+    publics = limb.ints_to_limbs_fast(
+        [x % L for r in reqs for x in [r.q, r.z_img, r.seed] + list(r.pub_list)],
+        (n, 3 + list_len))
+    return torch.from_numpy(v).to(dev), torch.from_numpy(publics).to(dev)
+
+
+def check_witness(checks) -> None:
+    """Phase 2b: the witness kernels at WITNESS_CASES, each launch
+    synchronised (the wrapper raises on its cudaGetLastError code), the
+    wires exact against the plain version on the CPU (blindbid_witness's
+    wires as limbs), two launches a wrapper call; each kernel timed apart as
+    in phase 2, beside the plain version's time for the whole witness."""
+    from dusk_blindbidproof_tpu_torch.models import blindbid
+    from dusk_blindbidproof_tpu_torch.models.gadgets import blindbid_n_pad
+    from dusk_blindbidproof_tpu_torch.ops import fused
+
+    dev = checks.dev
+    consts = blindbid.mimc_constants_limbs(dev)
+    for B, list_len, rows in WITNESS_CASES:
+        reqs = requests(B, request_inputs if list_len == 4 else full_list_inputs)
+        reqs = reqs if rows is None else reqs[rows]
+        v, publics = witness_inputs(reqs, dev)
+        n, n_pad = len(reqs), blindbid_n_pad(list_len)
+        label = f"B = {B}, {list_len} bids" + (
+            "" if rows is None else f", a rank's rows {rows.start} to {rows.stop - 1}")
+        before = fused.launch_counts()
+        scratch = fused.mimc_chain(v, publics, consts)
+        torch.cuda.synchronize()
+        got = fused.witness_fanout(v, publics, scratch, n_pad, list_len)
+        torch.cuda.synchronize()
+        whole = blindbid.witness_wires(v, publics, consts, n_pad)
+        torch.cuda.synchronize()
+        after = fused.launch_counts()
+        if any(after[k] - before[k] != (2 if k in WITNESS_KERNELS else 0) for k in after):
+            fail(f"witness ({label}): launches {({k: after[k] - before[k] for k in after})}")
+        t0 = time.perf_counter()
+        want = blindbid.witness_wires_ref(v.cpu(), publics.cpu(), consts.cpu(), n_pad)
+        plain = (time.perf_counter() - t0) * 1e3
+        for g in (got, whole):
+            if tuple(g.shape) != tuple(want.shape) or not torch.equal(g.cpu(), want):
+                fail(f"witness ({label}) disagrees with its plain version")
+        del got, whole, want
+        fe = FE_BYTES
+        cases = (
+            ("mimc_chain", lambda: fused.mimc_chain(v, publics, consts),
+             n * (fused.MIMC_SCRATCH_ROWS + 3) * fe, n * WITNESS_HASH_MULS * OPS_PER_FIELD_MUL),
+            ("witness_fanout",
+             lambda: fused.witness_fanout(v, publics, scratch, n_pad, list_len),
+             n * (3 * n_pad + fused.MIMC_SCRATCH_ROWS + 7 + 2 * list_len) * fe,
+             n * (3 * list_len + 2) * OPS_PER_FIELD_MUL),
+        )
+        for name, kern, n_bytes, n_ops in cases:
+            ms = device_ms(kern, WITNESS_REPS)
+            eager = cuda_ms(kern, WITNESS_REPS)
+            bms, by = bound_ms(n_bytes, n_ops)
+            print(f"K {name} ({label}): max abs err 0 (tolerance 0), kernel {ms:.5f} ms "
+                  f"({eager:.4f} ms a call in an eager loop), plain (the whole witness, on "
+                  f"the host) {plain:.3f} ms, bound {bms:.6f} ms ({by})", flush=True)
+            row = dict(max_abs_err=0, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=bms,
+                       bound_by=by)
+            checks.results.setdefault(name, row)
+            checks.rows.append(dict(name=name, label=label, **row))
+        del scratch
+        torch.cuda.empty_cache()
+
+
+class PlainWitnessCalls:
+    """Inside the `with` block, calls of the plain witness
+    (`blindbid.witness_wires_ref`) are counted: on the card there must be none."""
+
+    def __enter__(self):
+        from dusk_blindbidproof_tpu_torch.models import blindbid
+
+        self.calls, self._blindbid, self._saved = 0, blindbid, blindbid.witness_wires_ref
+
+        def counting(*args):
+            self.calls += 1
+            return self._saved(*args)
+
+        blindbid.witness_wires_ref = counting
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self._blindbid.witness_wires_ref = self._saved
+
+
+def check_witness_launches(counts: dict, plain: PlainWitnessCalls, where: str) -> None:
+    """One prove_batch: each witness kernel launched once, the plain version never."""
+    got = {k: counts[k] for k in WITNESS_KERNELS}
+    if got != dict.fromkeys(WITNESS_KERNELS, 1) or plain.calls:
+        fail(f"{where}: witness launches {got} and {plain.calls} plain calls in one "
+             "prove_batch (want one launch of each kernel and no plain call)")
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -736,11 +860,13 @@ def main_path_b16(dev) -> tuple[dict, list[float], list[str]]:
     profiling.enable()
     profiling.reset()
     fused.reset_launch_counts()
-    oks, _ = round_trip()
+    with PlainWitnessCalls() as plain:
+        oks, _ = round_trip()
     counts = fused.launch_counts()
     profiling.enable(False)
     if oks != [True] * B:
         fail("B=16 profiled round trip did not verify")
+    check_witness_launches(counts, plain, "B=16")
     print(profiling.report(), flush=True)
     print(f"launches in that round trip: {counts}", flush=True)
     missing = [k for k, v in counts.items() if v == 0]
@@ -1394,7 +1520,7 @@ def chain_small(dev) -> None:
 # entry functions of csrc/edwards_kernels.cu, as the profiler names them
 OWN_KERNELS = ("point_step_kernel", "point_scan_kernel", "point_double_kernel",
                "double_chain_kernel", "mul_rows_kernel", "sqr_chain_kernel",
-               "ristretto_compress_kernel")
+               "ristretto_compress_kernel", "mimc_chain_kernel", "witness_fanout_kernel")
 
 
 def kernel_rows(prof) -> list[dict]:
@@ -1505,7 +1631,7 @@ def chain_large(dev) -> dict:
     print(f"chain n = {n} B = {B}: every proof verifies, ipp_a + 1 rejected at place {bad} "
           f"only; launches in one round trip: {counts}; peak device memory {peak_gb:.3f} GB "
           f"(torch.cuda.max_memory_allocated over the trips)", flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items() if v == 0 and k not in WITNESS_KERNELS]
     if missing:
         fail(f"kernels never launched at n = {n}: {missing}")
 
@@ -2002,13 +2128,14 @@ def config4(dev, mesh_digests: list[str], digests_l4: list[str], counts_l4: dict
     profiling.reset()
     fused.reset_launch_counts()
     t0 = time.perf_counter()
-    with KernelShapes() as shapes:
+    with KernelShapes() as shapes, PlainWitnessCalls() as plain:
         oks, _ = round_trip()
     wall = time.perf_counter() - t0
     counts = fused.launch_counts()
     profiling.enable(False)
     if oks != [True] * B:
         fail(f"B={B}: the counted round trip gave {oks}")
+    check_witness_launches(counts, plain, f"B={B}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(profiling.report(), flush=True)
     print(f"config 4, B={B}: counted round trip {wall:.4f} s wall; launches {counts}; phase 4 "
@@ -2044,6 +2171,8 @@ def check_config4_kernels(dev, largest: dict, counts: dict) -> dict:
         return torch.randint(0, 8193, shape, dtype=torch.int32, device=dev, generator=gen)
 
     for name in fused.KERNELS:
+        if name in WITNESS_KERNELS:
+            continue  # phase 2b checks them at B = 256
         if name not in largest:
             fail(f"phase 9's round trip gave {name} no CUDA operands")
         shape, params, _ = largest[name]
@@ -2219,7 +2348,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": None,
             "large_shapes": large.get(name, []),
             "full_list_shapes": [row for row in full_shapes if row["name"] == name],
-            "config4_shapes": config4_shapes[name],
+            "config4_shapes": config4_shapes.get(name, []),
         })
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s; s/op at B=16: median "
           f"{np.median(s_per_op)} over {TIMED_TRIPS} round trips at 4 bids, "

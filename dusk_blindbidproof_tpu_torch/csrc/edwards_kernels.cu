@@ -2,7 +2,8 @@
 // the modular product of limb rows (K1) and its squaring chain, the Edwards
 // point ops in extended coordinates, a = -1 (K3 add, K4 double; K2 madd as
 // the leaf of its scan), the 32-step bucket scans built on K2 and K3, the
-// doubling chain built on K4, and the prover's Ristretto compression.
+// doubling chain built on K4, the prover's Ristretto compression, and the
+// BlindBid witness (its MiMC hashes, then its wires).
 //
 // Built by ops/fused.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -26,6 +27,9 @@
 //                         it (dusk_blindbidproof_tpu/ops/ristretto.py:26-33)
 //   bb_compress        <- no TPU kernel: the host's per-point compression
 //                         (dusk_blindbidproof_tpu/models/bulletproofs.py:119)
+//   bb_mimc_chain,     <- no TPU kernel: the host's BlindBid witness
+//   bb_witness_fanout     (dusk_blindbidproof_tpu/models/blindbid.py,
+//                         blindbid_witness); see "the BlindBid witness" below
 //
 // Design: one thread per item (one product, one point op, one block of R
 // consecutive items of a scan, or one point or row of a chain); an item's
@@ -517,6 +521,183 @@ sqr_chain_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, int n
   tile_store(out + w0, tile, rows * kNL);
 }
 
+// ---- the BlindBid witness ------------------------------------------------------
+//
+// Replace no TPU kernel: the JAX package builds the witness on the host, in
+// Python integers (dusk_blindbidproof_tpu/models/blindbid.py, blindbid_witness
+// and _mimc_witness), and so did the port, which then packed the 3 x (1442 +
+// 3 L) values of every proof into bytes for the copy.  Here the witness is
+// made on the card from the committed values and the publics, in the gate
+// order of models/gadgets.proof_gadget:
+//
+//   gates [0, 720)            MiMC m = H(k, 0), then x = H(d, m): 90 rounds of
+//                             4 gates each, (a, a, a^2) (a^2, a, a^3)
+//                             (a^2, a^2, a^4) (a^4, a^3, a^7), a = x + key + c
+//   [720, 720 + L)            booleanity (t, 1 - t, t (1 - t)) of each toggle
+//   [720 + L, 720 + 3 L)      membership (item, t, item t), (t, x, t x) a bid
+//   [720 + 3 L, 1440 + 3 L)   MiMC y = H(seed, x), then z = H(seed, m)
+//   1440 + 3 L, 1441 + 3 L    score (y, y_inv, y y_inv), (d, y_inv, d y_inv)
+//   [1442 + 3 L, n_pad)       zeros
+//
+// The work is split in two kernels because its two parts have opposite
+// bounds.  The hashes are latency bound: each is 90 dependent rounds of one
+// sum and three dependent products, and y waits for x, which waits for m, so
+// a proof's critical path is 270 rounds whatever the card's width.  The wires
+// are bound by bytes: 3 x n_pad x 84 bytes a proof (132 MB at 256 proofs,
+// 0.04 ms at 3.35 TB/s) from 364 scalars a proof.  One kernel that wrote the
+// wires from the hash threads would put 363 KB of stores on each of them;
+// so `mimc_chain_kernel` runs the hashes with a thread a (proof, hash) and
+// writes only each round's a and each hash's output (364 rows a proof), and
+// `witness_fanout_kernel` writes every wire entry with a thread a (proof,
+// gate), recomputing a round's powers from its a, and coalesced stores.
+
+constexpr int kRounds = 90;                     // models/gadgets.py MIMC_ROUNDS
+constexpr int kHashes = 4;                      // m, x, y, z in gate order
+constexpr int kHashRows = kHashes * kRounds;    // the rounds' a, hash by hash
+constexpr int kScratchRows = kHashRows + kHashes;  // then the four outputs
+constexpr int kMimcGates = 4 * kRounds;         // gates of one hash
+constexpr int kWitnessThreads = 128;            // gates a block of the fan-out
+
+__device__ __forceinline__ sc::Sc sc_one() {
+  sc::Sc one;
+#pragma unroll
+  for (int j = 0; j < sc::kLimbs; ++j) one.v[j] = j == 0;
+  return one;
+}
+
+// A row of 13-bit limbs in [0, 8192] as a canonical element: the load
+// repacks, the product by one reduces mod l.
+__device__ __forceinline__ sc::Sc sc_load_canon(const int32_t* __restrict__ row) {
+  return sc::sc_mul(sc::sc_load_row(reinterpret_cast<const uint32_t*>(row)), sc_one());
+}
+
+// One hash, models/blindbid._mimc_witness: x = left, then 90 rounds of
+// a = x + key + c_r, x = a^7; returns x + key.  Each round's a goes to
+// `rounds` (90 rows of 21 limbs).
+__device__ __forceinline__ sc::Sc mimc_hash(sc::Sc x, const sc::Sc& key,
+                                            const int32_t* __restrict__ consts,
+                                            int32_t* __restrict__ rounds) {
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const sc::Sc a = sc::sc_add(
+        sc::sc_add(x, key),
+        sc::sc_load_row(reinterpret_cast<const uint32_t*>(consts + r * kNL)));
+    sc::sc_store_row(reinterpret_cast<uint32_t*>(rounds + r * kNL), a);
+    const sc::Sc a2 = sc::sc_mul(a, a);
+    x = sc::sc_mul(sc::sc_mul(a2, a2), sc::sc_mul(a2, a));  // a^4 a^3
+  }
+  return sc::sc_add(x, key);
+}
+
+// The four hashes of 32 proofs a block: warp h runs hash h of proof
+// 32 blockIdx.x + lane, h = 0 m = H(k, 0), 1 x = H(d, m), 2 y = H(seed, x),
+// 3 z = H(seed, m), in three steps: m; x and z, which wait on m; y, which
+// waits on x.  So a block takes 270 rounds.  v [n, m_v, 21] holds (d, k, y,
+// y_inv, toggles), pub [n, m_p, 21] (q, z_img, seed, items); scratch
+// [n, 364, 21] takes the rounds' a (rows 90 h + r) and the outputs (row
+// 360 + h), canonical.  The hash has one call site, so it is compiled once.
+__global__ void __launch_bounds__(kHashes * 32, 4)
+mimc_chain_kernel(const int32_t* __restrict__ v, int m_v, const int32_t* __restrict__ pub,
+                  int m_p, const int32_t* __restrict__ consts, int32_t* __restrict__ scratch,
+                  int n) {
+  __shared__ sc::Sc keys[2][32];  // m, then x, of the block's proofs
+  const int h = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 32 + lane;
+  const int step = h == 0 ? 0 : h == 2 ? 2 : 1;
+  const int32_t* vr = v + (long long)row * m_v * kNL;
+  const int32_t* left = h == 0 ? vr + kNL : h == 1 ? vr : pub + ((long long)row * m_p + 2) * kNL;
+  int32_t* out = scratch + (long long)row * kScratchRows * kNL;
+#pragma unroll 1
+  for (int s = 0; s < 3; ++s) {
+    if (s == step && row < n) {
+      sc::Sc key;
+      if (h == 0) {
+#pragma unroll
+        for (int j = 0; j < sc::kLimbs; ++j) key.v[j] = 0;
+      } else {
+        key = keys[h == 2][lane];
+      }
+      const sc::Sc hash = mimc_hash(sc_load_canon(left), key, consts, out + h * kRounds * kNL);
+      if (h < 2) keys[h][lane] = hash;
+      sc::sc_store_row(reinterpret_cast<uint32_t*>(out + (kHashRows + h) * kNL), hash);
+    }
+    __syncthreads();
+  }
+}
+
+// The wire values (left, right, output) of gate `gate` of one proof; the
+// inputs as for mimc_chain_kernel, `rows` the proof's scratch rows.  Every
+// gate is a product, so the output is left times right for all of them.
+__device__ __forceinline__ void witness_gate(const int32_t* __restrict__ vr,
+                                             const int32_t* __restrict__ pr,
+                                             const int32_t* __restrict__ rows, int gate,
+                                             int list_len, sc::Sc& wl, sc::Sc& wr,
+                                             sc::Sc& wo) {
+  const int list0 = 2 * kMimcGates, list1 = list0 + 3 * list_len;
+  const int score = list1 + 2 * kMimcGates;
+#pragma unroll
+  for (int j = 0; j < sc::kLimbs; ++j) wl.v[j] = wr.v[j] = wo.v[j] = 0;
+  if (gate >= score + 2) return;  // padding
+  if (gate < list0 || (gate >= list1 && gate < score)) {
+    const int g = gate < list0 ? gate : gate - 3 * list_len;  // hash-major MiMC gate
+    const sc::Sc a = sc::sc_load_row(reinterpret_cast<const uint32_t*>(rows + (g >> 2) * kNL));
+    const sc::Sc a2 = sc::sc_mul(a, a);
+    const sc::Sc a3 = sc::sc_mul(a2, a), a4 = sc::sc_mul(a2, a2);
+    switch (g & 3) {
+      case 0: wl = a, wr = a; break;
+      case 1: wl = a2, wr = a; break;
+      case 2: wl = a2, wr = a2; break;
+      default: wl = a4, wr = a3; break;
+    }
+  } else {
+    // rows of the two operands: a toggle t, a list item, the hashes' x and y,
+    // d and y_inv; values and publics are reduced as they are loaded
+    const int32_t *lp, *rp;
+    const int k = gate - list0 - list_len;  // membership gate k, bid k / 2
+    if (k < 0) {  // booleanity of toggle gate - list0: (t, 1 - t)
+      lp = rp = vr + (4 + gate - list0) * kNL;
+    } else if (gate < list1) {  // membership: (item, t), then (t, x)
+      const int32_t* t = vr + (4 + (k >> 1)) * kNL;
+      lp = k & 1 ? t : pr + (3 + (k >> 1)) * kNL;
+      rp = k & 1 ? rows + (kHashRows + 1) * kNL : t;
+    } else {  // score: (y, y_inv), then (d, y_inv)
+      lp = gate == score ? rows + (kHashRows + 2) * kNL : vr;
+      rp = vr + 3 * kNL;
+    }
+    wl = sc_load_canon(lp);
+    wr = sc_load_canon(rp);
+    if (k < 0) wr = sc::sc_sub(sc_one(), wr);
+  }
+  wo = sc::sc_mul(wl, wr);
+}
+
+// out [3, n, n_pad, 21] (a_L, a_R, a_O), canonical: thread t of block b makes
+// gate (128 b + t) mod n_pad of proof (128 b + t) / n_pad.  A block's 128
+// consecutive entries of each wire are 10752 contiguous bytes, staged in
+// shared memory and stored as whole vectors (tile_store).
+__global__ void __launch_bounds__(kWitnessThreads, 4)
+witness_fanout_kernel(const int32_t* __restrict__ v, int m_v, const int32_t* __restrict__ pub,
+                      int m_p, const int32_t* __restrict__ scratch, int32_t* __restrict__ out,
+                      int n, int n_pad, int list_len) {
+  __shared__ __align__(16) uint32_t tiles[3][kTileWords + 4];
+  const long long total = (long long)n * n_pad, g0 = (long long)blockIdx.x * kWitnessThreads;
+  const int count = (int)min((long long)kWitnessThreads, total - g0), t = threadIdx.x;
+  if (t < count) {
+    const long long idx = g0 + t;
+    const int row = (int)(idx / n_pad), gate = (int)(idx - (long long)row * n_pad);
+    sc::Sc w[3];
+    witness_gate(v + (long long)row * m_v * kNL, pub + (long long)row * m_p * kNL,
+                 scratch + (long long)row * kScratchRows * kNL, gate, list_len, w[0], w[1],
+                 w[2]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      sc::sc_store_row(tiles[k] + tile_mis(out + (k * total + g0) * kNL) + t * kNL, w[k]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 3; ++k) tile_store(out + (k * total + g0) * kNL, tiles[k], count * kNL);
+}
+
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -542,7 +723,8 @@ int bb_init() {
       (const void*)mul_rows_kernel<ModP, false>,
       (const void*)mul_rows_kernel<ModP, true>,
       (const void*)mul_rows_kernel<ModL, false>,
-      (const void*)sqr_chain_kernel};
+      (const void*)sqr_chain_kernel,
+      (const void*)witness_fanout_kernel};
   for (const void* fn : staged) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
@@ -632,6 +814,32 @@ int bb_compress(const int32_t* p, int32_t* out, long long n, void* stream) {
   if (n >= (1ll << 31) - kPtThreads) return kBadArgument;  // the kernel counts points in 32 bits
   ristretto_compress_kernel<<<blocks_for(n, kPtThreads), kPtThreads, 0, (cudaStream_t)stream>>>(
       (const int4*)p, (int4*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// v [n, m_v, 21] (d, k, y, y_inv, toggles), pub [n, m_p, 21] (q, z_img, seed,
+// items), consts [90, 21] -> scratch [n, 364, 21]: the hashes' round inputs
+// and outputs (mimc_chain_kernel).
+int bb_mimc_chain(const int32_t* v, int m_v, const int32_t* pub, int m_p, const int32_t* consts,
+                  int32_t* scratch, long long n, void* stream) {
+  if (n < 1 || n >= (1ll << 31) - 32 || m_v < 5 || m_p < 4) return kBadArgument;
+  mimc_chain_kernel<<<blocks_for(n, 32), kHashes * 32, 0, (cudaStream_t)stream>>>(
+      v, m_v, pub, m_p, consts, scratch, (int)n);
+  return (int)cudaGetLastError();
+}
+
+// The same v and pub, and mimc_chain's scratch -> out [3, n, n_pad, 21], the
+// wires a_L, a_R, a_O of list_len bids (witness_fanout_kernel).
+int bb_witness_fanout(const int32_t* v, int m_v, const int32_t* pub, int m_p,
+                      const int32_t* scratch, int32_t* out, long long n, int n_pad, int list_len,
+                      void* stream) {
+  if (n < 1 || list_len < 1 || m_v != 4 + list_len || m_p != 3 + list_len ||
+      n_pad < 4 * kMimcGates + 2 + 3 * list_len ||
+      n * n_pad >= (1ll << 31) * (long long)kWitnessThreads)  // blocks are counted in 32 bits
+    return kBadArgument;
+  witness_fanout_kernel<<<blocks_for(n * n_pad, kWitnessThreads), kWitnessThreads, 0,
+                          (cudaStream_t)stream>>>(v, m_v, pub, m_p, scratch, out, (int)n, n_pad,
+                                                  list_len);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Scalar arithmetic mod l = 2^252 + 27742317777372353535851937790883648493
 // (the order of the Ristretto group) for K1 mul_rows mod l, one product per
-// thread.
+// thread, and for the BlindBid witness kernels (sc_add, sc_sub on canonical
+// elements beside the product).
 //
 // Replaces, for that modulus, `_build_scalar_mul`
 // (dusk_blindbidproof_tpu/ops/fused.py:328).
@@ -144,6 +145,56 @@ __device__ __forceinline__ Sc sc_mul(const Sc& a, const Sc& b) {
   }
   y.v[kLimbs - 1] = c;
   return y;
+}
+
+// Limb j of l: D's five limbs, then zeros, then the leading one at bit 252.
+__device__ __forceinline__ uint32_t sc_l_limb(int j) {
+  return j < kDLimbs ? sc_d[j] : (j == kLimbs - 1 ? 1u : 0u);
+}
+
+// a + b mod l for canonical a and b: canonical.  The sum lies below 2 l, so
+// l is subtracted once where that leaves no borrow.
+__device__ __forceinline__ Sc sc_add(const Sc& a, const Sc& b) {
+  Sc s, d;
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    const uint32_t t = a.v[j] + b.v[j] + c;
+    s.v[j] = t & kMask;
+    c = t >> kBits;  // 0 at limb 9, whose sum is at most 3
+  }
+  int32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    const int32_t t = (int32_t)s.v[j] - (int32_t)sc_l_limb(j) - borrow;
+    d.v[j] = (uint32_t)t & kMask;
+    borrow = t < 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) d.v[j] = borrow ? s.v[j] : d.v[j];
+  return d;
+}
+
+// a - b mod l for canonical a and b: canonical.  Where the difference went
+// negative, l is added back and the carry out of limb 9 dropped.
+__device__ __forceinline__ Sc sc_sub(const Sc& a, const Sc& b) {
+  Sc d;
+  int32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    const int32_t t = (int32_t)a.v[j] - (int32_t)b.v[j] - borrow;
+    d.v[j] = (uint32_t)t & kMask;
+    borrow = t < 0;
+  }
+  const uint32_t neg = 0u - (uint32_t)borrow;
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    const uint32_t t = d.v[j] + (sc_l_limb(j) & neg) + c;
+    d.v[j] = t & kMask;
+    c = t >> kBits;
+  }
+  return d;
 }
 
 // A canonical element -> its row of 21 limbs of 13 bits in the block's tile.

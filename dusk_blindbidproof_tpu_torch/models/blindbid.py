@@ -14,8 +14,10 @@ byte-identical to mesh=None).  The circuit shape is cached per list length
 and device, and is made first.  Before it, the list is held to the generator
 capacity from its length alone (`check_list_len`): an empty list is refused
 with ValueError and one too long with ProofError, before any synthesis, table
-or kernel launch.  The witness is generated by a host routine mirroring the
-gadget's gate order, and crosses to the device as 8 words a value.
+or kernel launch.  The witness is made on the prover's device
+(`witness_wires`, two kernels of ops.fused) from the committed values and
+the publics of the rows it proves; `witness_wires_ref` is its plain version,
+in host integers.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..ops import limb
+from ..ops import fused, limb
+from ..ops.limb import NLIMBS
 from ..parallel import mesh as pmesh
 from ..utils.curve_host import L, scalar_invert
 from ..utils.merlin import Transcript
@@ -35,11 +39,12 @@ from .bulletproofs import (
     Prover,
     ProverWitness,
     Verifier,
+    _dev,
     check_capacity,
     resolve_device,
 )
 from .constants import GENS_CAPACITY, TRANSCRIPT_LABEL, mimc_constants
-from .gadgets import blindbid_n_pad, mimc_hash, proof_gadget
+from .gadgets import MIMC_ROUNDS, blindbid_gates, blindbid_n_pad, mimc_hash, proof_gadget
 from .proof_struct import BlindBidProof, R1CSProof
 from .r1cs import LC, VerifierCS
 
@@ -108,53 +113,116 @@ def _mimc_witness(a_L, a_R, a_O, left: int, key: int, constants) -> int:
     return (x + key) % L
 
 
-def blindbid_witness(req: ProveRequest):
-    """Gate assignments in the gadget's exact gate order
-    (models.gadgets.proof_gadget)."""
-    consts = mimc_constants()
+def witness_values(d: int, k: int, y_inv: int, seed: int, items, toggles, constants):
+    """Gate assignments (a_L, a_R, a_O) in the gadget's exact gate order
+    (models.gadgets.proof_gadget) from the committed values d, k, y_inv and
+    the toggles, the publics seed and items, and the MiMC round constants;
+    every value is read mod l.  The score gates take the y the hashes
+    compute.  The integers of `witness_wires_ref`."""
+    d, k, y_inv, seed = d % L, k % L, y_inv % L, seed % L
     a_L: list[int] = []
     a_R: list[int] = []
     a_O: list[int] = []
-    m = _mimc_witness(a_L, a_R, a_O, req.k, 0, consts)
-    x = _mimc_witness(a_L, a_R, a_O, req.d, m, consts)
+    m = _mimc_witness(a_L, a_R, a_O, k, 0, constants)
+    x = _mimc_witness(a_L, a_R, a_O, d, m, constants)
+    toggles = [t % L for t in toggles]
     # one_of_many: booleanity gates per toggle
-    toggles = [1 if i == req.toggle else 0 for i in range(len(req.pub_list))]
     for t in toggles:
         a_L.append(t)
         a_R.append((1 - t) % L)
         a_O.append(t * (1 - t) % L)
     # membership gates: items[i]*toggle[i], toggle[i]*x
-    for item, t in zip(req.pub_list, toggles):
+    for item, t in zip(items, toggles):
         a_L.append(item % L)
         a_R.append(t)
         a_O.append(item * t % L)
         a_L.append(t)
         a_R.append(x)
         a_O.append(t * x % L)
-    y = _mimc_witness(a_L, a_R, a_O, req.seed, x, consts)
-    _mimc_witness(a_L, a_R, a_O, req.seed, m, consts)
+    y = _mimc_witness(a_L, a_R, a_O, seed, x, constants)
+    _mimc_witness(a_L, a_R, a_O, seed, m, constants)
     # score gadget: y * y_inv, d * y_inv
     a_L.append(y)
-    a_R.append(req.y_inv % L)
-    a_O.append(y * req.y_inv % L)
-    a_L.append(req.d % L)
-    a_R.append(req.y_inv % L)
-    a_O.append(req.d * req.y_inv % L)
+    a_R.append(y_inv)
+    a_O.append(y * y_inv % L)
+    a_L.append(d)
+    a_R.append(y_inv)
+    a_O.append(d * y_inv % L)
     return a_L, a_R, a_O
 
 
-def witness_words(wires, rows, B: int, n_pad: int) -> np.ndarray:
-    """The wires of `blindbid_witness` for the batch rows `rows` as
-    [3, B, n_pad, 8] little-endian int32 words (a_L, a_R, a_O): the 32 bytes
-    of each canonical value, zero past the gates and in the rows not given (a
-    mesh rank's view).  The prover turns them into limbs on its device."""
-    buf = np.zeros((3, B, n_pad, 32), dtype=np.uint8)
-    for i, row in zip(rows, wires):
-        for w, wire in enumerate(row):
-            buf[w, i, : len(wire)] = np.frombuffer(
-                b"".join(v.to_bytes(32, "little") for v in wire), np.uint8
-            ).reshape(-1, 32)
-    return buf.view("<i4")
+def blindbid_witness(req: ProveRequest):
+    """Gate assignments of one request in the gadget's exact gate order."""
+    toggles = [1 if i == req.toggle else 0 for i in range(len(req.pub_list))]
+    return witness_values(req.d, req.k, req.y_inv, req.seed, req.pub_list, toggles,
+                          mimc_constants())
+
+
+@functools.lru_cache(maxsize=8)
+def mimc_constants_limbs(device) -> torch.Tensor:
+    """The MiMC round constants as [MIMC_ROUNDS, NLIMBS] limbs on `device`,
+    made once per device for `witness_wires`."""
+    return torch.from_numpy(limb.ints_to_limbs_fast(mimc_constants())).to(device)
+
+
+def _witness_list_len(v: torch.Tensor, publics: torch.Tensor, constants: torch.Tensor,
+                      n_pad: int) -> int:
+    """The list length of a `witness_wires` call, or ValueError where the
+    shapes do not make one: v [n, 4 + L, NLIMBS], publics [n, 3 + L, NLIMBS],
+    constants [MIMC_ROUNDS, NLIMBS], n_pad at least the 1442 + 3 L gates."""
+    if v.dim() != 3 or publics.dim() != 3 or v.shape[0] != publics.shape[0]:
+        raise ValueError(f"witness_wires takes v [n, 4 + L, {NLIMBS}] and publics "
+                         f"[n, 3 + L, {NLIMBS}], got {tuple(v.shape)}, {tuple(publics.shape)}")
+    list_len = v.shape[1] - 4
+    if list_len < 1 or publics.shape[1] != 3 + list_len:
+        raise ValueError(f"v {tuple(v.shape)} and publics {tuple(publics.shape)} "
+                         "do not hold one list of bids")
+    for name, x in (("v", v), ("publics", publics)):
+        if x.shape[-1] != NLIMBS:
+            raise ValueError(f"{name} takes [..., {NLIMBS}] limb rows, got {tuple(x.shape)}")
+    if tuple(constants.shape) != (MIMC_ROUNDS, NLIMBS):
+        raise ValueError(f"constants {tuple(constants.shape)} != {(MIMC_ROUNDS, NLIMBS)}")
+    if n_pad < blindbid_gates(list_len):
+        raise ValueError(f"n_pad {n_pad} is below the {blindbid_gates(list_len)} gates of "
+                         f"{list_len} bids")
+    return list_len
+
+
+def witness_wires_ref(v: torch.Tensor, publics: torch.Tensor, constants: torch.Tensor,
+                      n_pad: int) -> torch.Tensor:
+    """Plain version of `witness_wires`: `witness_values` on the rows'
+    integers, its wires as limbs."""
+    _witness_list_len(v, publics, constants, n_pad)
+    n = v.shape[0]
+    consts = limb.limbs_to_ints(constants)
+    vs = np.asarray(limb.limbs_to_ints(v), dtype=object).reshape(n, -1)
+    ps = np.asarray(limb.limbs_to_ints(publics), dtype=object).reshape(n, -1)
+    out = np.zeros((3, n, n_pad, NLIMBS), dtype=np.int32)
+    for i in range(n):
+        d, k, _, y_inv, *toggles = vs[i]
+        _, _, seed, *items = ps[i]
+        for w, wire in enumerate(witness_values(d, k, y_inv, seed, items, toggles, consts)):
+            out[w, i, : len(wire)] = limb.ints_to_limbs_fast(wire)
+    return torch.from_numpy(out).to(v.device)
+
+
+def witness_wires(v: torch.Tensor, publics: torch.Tensor, constants: torch.Tensor,
+                  n_pad: int) -> torch.Tensor:
+    """The BlindBid witness of n proofs: v [n, 4 + L, NLIMBS] (d, k, y,
+    y_inv, the L toggles), publics [n, 3 + L, NLIMBS] (q, z_img, seed, the L
+    items) and the MiMC round constants [MIMC_ROUNDS, NLIMBS], limbs in
+    [0, 8192] read mod l -> [3, n, n_pad, NLIMBS] canonical limbs: a_L, a_R,
+    a_O in the gadget's gate order, zero past its 1442 + 3 L gates.  The
+    score gates take the y the hashes compute, not v's.
+
+    On CUDA tensors two launches: `fused.mimc_chain` (the hashes into a
+    scratch of the rounds' inputs) and `fused.witness_fanout` (every wire
+    entry from it); `witness_wires_ref` on CPU tensors."""
+    if not (v.is_cuda or publics.is_cuda or constants.is_cuda):
+        return witness_wires_ref(v, publics, constants, n_pad)
+    list_len = _witness_list_len(v, publics, constants, n_pad)
+    return fused.witness_fanout(v, publics, fused.mimc_chain(v, publics, constants), n_pad,
+                                list_len)
 
 
 def make_prove_request(
@@ -236,6 +304,19 @@ def prove_batch(
             [r.d, r.k, r.y, r.y_inv] + [1 if i == r.toggle else 0 for i in range(list_len)]
             for r in requests
         ]
+        with span("app.publics"):
+            publics = _publics_limbs(
+                [[r.q, r.z_img, r.seed] + list(r.pub_list) for r in requests]
+            )
+        # the rows this process proves: their values and publics cross to its
+        # device and the wires are made there, under the commitments' host work
+        with span("app.witness"):
+            rows = range(B)[prover.rows]
+            v = _dev(limb.ints_to_limbs_fast([x % L for i in rows for x in values[i]],
+                                             (len(rows), m)), prover.device)
+            publics_rows = _dev(publics[prover.rows], prover.device)
+            wires = witness_wires(v, publics_rows, mimc_constants_limbs(prover.device),
+                                  circuit.n_pad)
         blind_ints = None
         if mesh is None or mesh.rank == 0:
             with span("app.blindings"):
@@ -246,21 +327,10 @@ def prove_batch(
         if mesh is not None:
             blind_ints = pmesh.broadcast_object(mesh, blind_ints)
         commitments = prover.commit_batch(values, blind_ints)
-
-        n_pad = circuit.n_pad
-        rows = range(B)[prover.rows]  # the rows the prover reads
-        with span("app.witness"):
-            wires = [blindbid_witness(requests[i]) for i in rows]
-        with span("app.witness_words"):
-            aL, aR, aO = witness_words(wires, rows, B, n_pad)
-            v = limb.ints_to_limbs_fast([v % L for row in values for v in row], (B, m))
+        with span("app.blindings"):
             v_blinding = limb.ints_to_limbs_fast([g for row in blind_ints for g in row], (B, m))
-        with span("app.publics"):
-            publics = _publics_limbs(
-                [[r.q, r.z_img, r.seed] + list(r.pub_list) for r in requests]
-            )
-        witness = ProverWitness(a_L=aL, a_R=aR, a_O=aO, v=v, v_blinding=v_blinding,
-                                publics=publics)
+        witness = ProverWitness(a_L=wires[0], a_R=wires[1], a_O=wires[2], v=v,
+                                v_blinding=v_blinding, publics=publics_rows)
         r1cs_proofs = prover.prove(circuit, witness, seed=seed)
         return [
             BlindBidProof(r1cs=p, commitments=commitments[i][:4], t_c=commitments[i][4:])

@@ -284,28 +284,45 @@ def generator_tables(cap: int, device: torch.device) -> GeneratorTables:
 
 @dataclass
 class ProverWitness:
-    """Per-batch witness arrays on the host, canonical.  The wires a_L, a_R
-    and a_O come in either of two forms, told apart by the trailing
-    dimension: 8 little-endian int32 words a value (its 32 bytes viewed as
-    '<i4'), which become limbs on the prover's device
-    (`limb.limbs_from_words`), or NLIMBS strict limbs, which cross as they
-    are.  Any other trailing dimension raises ValueError before any copy."""
+    """Per-batch witness arrays, canonical, as NLIMBS strict limbs a value.  A
+    host array holds the whole batch's rows (a rank of a mesh reads its own)
+    and crosses as it is; a tensor on the prover's device holds the prover's
+    rows alone (all of them without a mesh) and is used with no copy.
+    v_blinding is read on the host.  A host wire of another trailing
+    dimension, or a tensor on another device or of other rows, raises
+    ValueError before any copy."""
 
-    a_L: np.ndarray  # [B, n_pad, 8] words or [B, n_pad, NLIMBS] limbs
-    a_R: np.ndarray  # as a_L
-    a_O: np.ndarray  # as a_L
-    v: np.ndarray  # [B, m, NLIMBS]
+    a_L: np.ndarray | torch.Tensor  # [B, n_pad, NLIMBS]
+    a_R: np.ndarray | torch.Tensor  # as a_L
+    a_O: np.ndarray | torch.Tensor  # as a_L
+    v: np.ndarray | torch.Tensor  # [B, m, NLIMBS]
     v_blinding: np.ndarray  # [B, m, NLIMBS]
-    publics: np.ndarray  # [B, n_pub, NLIMBS]
+    publics: np.ndarray | torch.Tensor  # [B, n_pub, NLIMBS]
 
 
-def _check_wires(witness: ProverWitness) -> None:
-    """Raise ValueError unless each wire ends in 8 words or NLIMBS limbs."""
-    for name in ("a_L", "a_R", "a_O"):
-        last = getattr(witness, name).shape[-1]
-        if last not in (8, NLIMBS):
-            raise ValueError(f"{name}: trailing dimension {last}, "
-                             f"not 8 words or {NLIMBS} limbs a value")
+def _check_wires(witness: ProverWitness, device: torch.device, rows: int) -> None:
+    """Raise ValueError unless each host wire ends in NLIMBS limbs, and each
+    tensor is int32 limbs of the prover's `rows` rows on its `device`."""
+    for f in fields(ProverWitness):
+        x = getattr(witness, f.name)
+        if isinstance(x, torch.Tensor):
+            if f.name == "v_blinding" or x.device != device:
+                raise ValueError(f"{f.name}: a tensor on {x.device}, not on the prover's "
+                                 f"{device}" + (" (it is read on the host)"
+                                                if f.name == "v_blinding" else ""))
+            if x.dtype != torch.int32 or x.dim() != 3 or x.shape[0] != rows \
+                    or x.shape[-1] != NLIMBS:
+                raise ValueError(f"{f.name}: a {x.dtype} tensor of shape {tuple(x.shape)}, "
+                                 f"not [{rows}, ..., {NLIMBS}] int32 limbs of the prover's rows")
+        elif f.name in ("a_L", "a_R", "a_O") and x.shape[-1] != NLIMBS:
+            raise ValueError(f"{f.name}: trailing dimension {x.shape[-1]}, "
+                             f"not {NLIMBS} limbs a value")
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """A witness array on the prover's device: a tensor as it is, host limbs
+    copied."""
+    return x if isinstance(x, torch.Tensor) else _dev(x, device)
 
 
 def _sample_scalar_bytes(rng: np.random.Generator, shape) -> np.ndarray:
@@ -569,18 +586,19 @@ class Prover(_MeshRows):
               seed: bytes = b"\x00" * 32) -> list[R1CSProof]:
         """The proofs of the whole batch; `witness` holds the whole batch's
         rows, of which a rank of a mesh reads its own alone.  A circuit larger
-        than the capacity raises ProofError, and a wire of another form than
-        words or limbs ValueError, before any work (on every rank of a mesh
-        alike, with no collective)."""
+        than the capacity raises ProofError, and a host wire of another form
+        than limbs, or a tensor on another device or of other rows than the
+        prover's, ValueError, before any work (on every rank of a mesh alike,
+        with no collective)."""
         with span("prove"):
             check_capacity(circuit.n_pad, self.cap)
-            _check_wires(witness)
+            _check_wires(witness, self.device, len(self.transcripts))
             if self.mesh is None:
                 return self._prove_rows(circuit, witness, seed)
             local = []
             if self.transcripts:
-                rows = ProverWitness(*(getattr(witness, f.name)[self.rows]
-                                       for f in fields(ProverWitness)))
+                rows = ProverWitness(*(x if isinstance(x, torch.Tensor) else x[self.rows]
+                                       for x in vars(witness).values()))
                 local = self._prove_rows(circuit, rows, seed)
             return [R1CSProof.from_bytes(b)
                     for b in self._gather([p.to_bytes() for p in local])]
@@ -621,9 +639,7 @@ class Prover(_MeshRows):
                 s_bytes[:, :, n1:] = 0
                 s_words = s_bytes.view("<i4")  # [2, B, n_pad, 8]
 
-        a_L, a_R, a_O = (limb.limbs_from_words(_dev(x, dev)) if x.shape[-1] == 8
-                         else _dev(x, dev)
-                         for x in (witness.a_L, witness.a_R, witness.a_O))
+        a_L, a_R, a_O = (_on_device(x, dev) for x in (witness.a_L, witness.a_R, witness.a_O))
         s_L, s_R = limb.limbs_from_words(_dev(s_words, dev))
 
         with span("prove.phase_a"):
@@ -646,7 +662,7 @@ class Prover(_MeshRows):
 
         with span("prove.phase_t"):
             wL, wR, wO, wV, wc = flatten_constraints(
-                circuit, self._ints(zs), _dev(witness.publics, dev)
+                circuit, self._ints(zs), _on_device(witness.publics, dev)
             )
             y_pows = vector_powers_from_one(self._ints(ys), n_pad)
             y_inv_pows = vector_powers_from_one(self._ints(_batch_invert(ys)), n_pad)

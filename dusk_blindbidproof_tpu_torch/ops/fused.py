@@ -15,6 +15,9 @@ Pallas kernels, and the loops that drove them:
     add_total     the R-item block sums alone (K3 leaf)
     compress      Ristretto compression of extended points to their 32-byte
                   encodings (the prover's transcript points; no TPU kernel)
+    mimc_chain    the BlindBid witness's four MiMC hashes, a thread a hash
+    witness_fanout  and its wires a_L, a_R, a_O, a thread a gate (no TPU
+                  kernel: the host's witness)
 
 Everything mod p runs on csrc/fe25519.cuh (10 limbs of 26/25 bits inside the
 kernel), K1 mod l on csrc/sc25519.cuh (10 limbs of 28 bits); the tensors keep
@@ -23,8 +26,11 @@ step of `madd_scan`, and `madd_ref` is that scan's plain leaf.
 
 Every wrapper takes a CPU tensor to its plain version (`mul_rows_ref`,
 `sqr_chain_ref`, `add_ref`, `double_ref`, `double_chain_ref`,
-`madd_scan_ref`, `add_scan_ref`, `add_total_ref`, `compress_ref`) and a CUDA tensor to its
-kernel, or raises: nothing falls back from the kernel to the plain version.
+`madd_scan_ref`, `add_scan_ref`, `add_total_ref`, `compress_ref`) and a CUDA
+tensor to its kernel, or raises: nothing falls back from the kernel to the
+plain version.  The witness's two launches, `mimc_chain` and
+`witness_fanout`, take CUDA tensors alone: their caller,
+models.blindbid.witness_wires, holds the gate layout and the plain version.
 A CUDA wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on its operands' card and that card's
 current stream (inside a device guard of that card, whichever card is
@@ -70,7 +76,7 @@ NVCC_FLAGS = (
 
 # one launch count per kernel entry point; K1 counts each modulus apart
 KERNELS = ("mul_rows_fp", "mul_rows_fl", "sqr_chain", "add", "double", "double_chain",
-           "madd_scan", "add_scan", "add_total", "compress")
+           "madd_scan", "add_scan", "add_total", "compress", "mimc_chain", "witness_fanout")
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_SECONDS = None  # wall time of this process's nvcc build, if it ran one
 BUILD_LOG = ""  # nvcc's output for the library in use (ptxas registers and spills)
@@ -155,9 +161,11 @@ def _lib():
         lib.bb_double_chain.argtypes = [vp, vp, ll, ci, ci, vp]
         lib.bb_point_scan.argtypes = [ci, ci, vp, vp, vp, ll, ci, vp]
         lib.bb_compress.argtypes = [vp, vp, ll, vp]
+        lib.bb_mimc_chain.argtypes = [vp, ci, vp, ci, vp, vp, ll, vp]
+        lib.bb_witness_fanout.argtypes = [vp, ci, vp, ci, vp, vp, ll, ci, ci, vp]
         for fn in (lib.bb_init, lib.bb_mul_rows, lib.bb_sqr_chain, lib.bb_point_add,
                    lib.bb_point_double, lib.bb_double_chain, lib.bb_point_scan,
-                   lib.bb_compress):
+                   lib.bb_compress, lib.bb_mimc_chain, lib.bb_witness_fanout):
             fn.restype = ci
         _LIB = lib
     return _LIB
@@ -523,4 +531,57 @@ def compress(points: torch.Tensor) -> torch.Tensor:
     n = out.numel() // ENCODING_WORDS
     if n:
         _launch("compress", "bb_compress", points.device, points.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The BlindBid witness: its MiMC hashes, then its wires
+# ---------------------------------------------------------------------------
+
+MIMC_ROUNDS = 90  # the rounds of a hash built into mimc_chain_kernel (kRounds)
+MIMC_SCRATCH_ROWS = 4 * MIMC_ROUNDS + 4  # the rounds' inputs, then the four outputs
+
+
+def _check_operands(*operands) -> None:
+    """`_check` of each (shape, tensor) pair, and all of them on one card."""
+    for shape, x in operands:
+        _check(shape, x)
+    devices = {x.device for _, x in operands}
+    if len(devices) > 1:
+        raise ValueError("kernel operands must share one CUDA device, got "
+                         + ", ".join(sorted(map(str, devices))))
+
+
+def mimc_chain(v: torch.Tensor, publics: torch.Tensor, constants: torch.Tensor) -> torch.Tensor:
+    """The `mimc_chain` launch: v [n, 4 + L, NLIMBS] (d, k, y, y_inv, the L
+    toggles), publics [n, 3 + L, NLIMBS] (q, z_img, seed, the L items) and
+    the round constants [MIMC_ROUNDS, NLIMBS], limbs in [0, 8192] read mod l
+    -> the scratch [n, MIMC_SCRATCH_ROWS, NLIMBS] of the four hashes' round
+    inputs a (hash h, round r at row 90 h + r) and outputs (row 360 + h).
+    CUDA tensors alone: the gate layout and the plain version of the witness
+    are the application's (models.blindbid.witness_wires)."""
+    n, m = v.shape[0], v.shape[1]
+    _check_operands(((n, m, NLIMBS), v), ((n, m - 1, NLIMBS), publics),
+                    ((MIMC_ROUNDS, NLIMBS), constants))
+    scratch = torch.empty((n, MIMC_SCRATCH_ROWS, NLIMBS), dtype=torch.int32, device=v.device)
+    if n:
+        _launch("mimc_chain", "bb_mimc_chain", v.device, v.data_ptr(), m, publics.data_ptr(),
+                m - 1, constants.data_ptr(), scratch.data_ptr(), n)
+    return scratch
+
+
+def witness_fanout(v: torch.Tensor, publics: torch.Tensor, scratch: torch.Tensor, n_pad: int,
+                   list_len: int) -> torch.Tensor:
+    """The `witness_fanout` launch: `mimc_chain`'s operands and scratch ->
+    [3, n, n_pad, NLIMBS] canonical limbs, the wires a_L, a_R, a_O of
+    list_len bids, zero past their 1442 + 3 list_len gates (an n_pad below
+    them raises KernelError).  CUDA tensors alone."""
+    n = v.shape[0]
+    _check_operands(((n, 4 + list_len, NLIMBS), v), ((n, 3 + list_len, NLIMBS), publics),
+                    ((n, MIMC_SCRATCH_ROWS, NLIMBS), scratch))
+    out = torch.empty((3, n, n_pad, NLIMBS), dtype=torch.int32, device=v.device)
+    if n:
+        _launch("witness_fanout", "bb_witness_fanout", v.device, v.data_ptr(), 4 + list_len,
+                publics.data_ptr(), 3 + list_len, scratch.data_ptr(), out.data_ptr(), n, n_pad,
+                list_len)
     return out

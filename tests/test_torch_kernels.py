@@ -1,6 +1,7 @@
 """The CUDA kernels (K1 mul_rows and its squaring chain, K3 add, K4 double
 and its doubling chain, the R-step scans madd_scan (K2 leaf), add_scan,
-add_total, and Ristretto compression) against their plain PyTorch versions.
+add_total, Ristretto compression, and the BlindBid witness's mimc_chain and
+witness_fanout) against their plain PyTorch versions.
 
 This file imports neither jax nor the JAX package, so it also runs on a GPU
 machine without them:
@@ -381,6 +382,17 @@ def test_compress_refuses_what_the_kernel_does_not_take(cuda):
     assert torch.equal(ok.transpose(0, 1).cpu(), fused.compress_ref(p.cpu()))
 
 
+def _witness_operands():
+    """Random limbs in [0, 8192] (any value, read mod l) as the committed
+    values and publics of 3 proofs of 4 bids, the MiMC constants and n_pad."""
+    from dusk_blindbidproof_tpu_torch.models import blindbid
+
+    v, publics = _rows(25, (3, 8, limb.NLIMBS)), _rows(26, (3, 7, limb.NLIMBS))
+    v[:, 4:] = 0
+    v[:, 5, 0] = 1  # one toggle a proof
+    return v, publics, blindbid.mimc_constants_limbs(torch.device("cpu")), 2048
+
+
 def test_cpu_tensors_take_the_plain_versions():
     a, b = _rows(7, (16, limb.NLIMBS)), _rows(8, (16, limb.NLIMBS))
     p, q = _rows(9, (5, 4, limb.NLIMBS)), _rows(10, (5, 4, limb.NLIMBS))
@@ -392,6 +404,11 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(fused.sqr_chain(limb.FP, a, 3), fused.sqr_chain_ref(limb.FP, a, 3))
     assert torch.equal(fused.madd_scan(p[:4], 2)[1], fused.madd_scan_ref(p[:4], 2)[1])
     assert torch.equal(fused.compress(p), fused.compress_ref(p))
+    from dusk_blindbidproof_tpu_torch.models import blindbid
+
+    v, publics, consts, n_pad = _witness_operands()
+    assert torch.equal(blindbid.witness_wires(v, publics, consts, n_pad),
+                       blindbid.witness_wires_ref(v, publics, consts, n_pad))
     items = _rows(13, (2, 12, 4, limb.NLIMBS))
     for name, (kern, ref, _) in SCAN_KERNELS.items():
         for g, w in zip(_as_tuple(kern(items, 4)), _as_tuple(ref(items, 4))):
@@ -411,7 +428,8 @@ def test_cpu_tensors_take_the_plain_versions():
 ENTRIES = {"mul_rows_fp": "bb_mul_rows", "mul_rows_fl": "bb_mul_rows",
            "sqr_chain": "bb_sqr_chain", "add": "bb_point_add", "double": "bb_point_double",
            "double_chain": "bb_double_chain", "madd_scan": "bb_point_scan",
-           "add_scan": "bb_point_scan", "add_total": "bb_point_scan", "compress": "bb_compress"}
+           "add_scan": "bb_point_scan", "add_total": "bb_point_scan", "compress": "bb_compress",
+           "mimc_chain": "bb_mimc_chain", "witness_fanout": "bb_witness_fanout"}
 
 
 class _Cards:
@@ -517,6 +535,12 @@ def _wrapper_cases(name):
                 lambda: fused.double_chain_ref(pts, 3, 2), limb.FP)
     if name == "compress":
         return lambda d: fused.compress(pts.to(d)), lambda: fused.compress_ref(pts), None
+    if name in ("mimc_chain", "witness_fanout"):
+        from dusk_blindbidproof_tpu_torch.models import blindbid
+
+        v, publics, consts, n_pad = _witness_operands()
+        return (lambda d: blindbid.witness_wires(v.to(d), publics.to(d), consts.to(d), n_pad),
+                lambda: blindbid.witness_wires_ref(v, publics, consts, n_pad), None)
     kern, ref, _ = SCAN_KERNELS[name]
     return lambda d: kern(pts.to(d), 32), lambda: ref(pts, 32), limb.FP
 

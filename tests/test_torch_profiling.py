@@ -159,7 +159,7 @@ def _reader(name):
 def test_the_readers_on_a_synthetic_record():
     record = {
         "proofs": 4,
-        "span_self_s": {"app.prove_batch": 0.010, "app.witness_words": 0.030,
+        "span_self_s": {"app.prove_batch": 0.010, "app.witness": 0.030,
                         "prove": 0.002, "verify": 0.001, "prove.phase_a": 0.004,
                         "verify.device": 0.005, "prove.host_rng": 0.5,
                         "device.d2h": 0.006},
@@ -294,7 +294,7 @@ def test_the_four_accounts_are_disjoint_and_cover_a_round_trip(spans, cheap_msms
     assert spans.dropped() == 0
     names = {r.name for r in recs}
     assert {"app.prove_batch", "app.verify_batch", "app.circuit", "app.blindings",
-            "app.witness", "app.witness_words", "app.publics", "prove", "verify",
+            "app.witness", "app.publics", "prove", "verify",
             "device.h2d", "device.d2h", "prove.host_rng.transcript",
             "prove.host_rng.draw"} <= names
     assert {r.pass_id for r in recs if r.name == "prove"} != {

@@ -1,5 +1,6 @@
 """Word-for-word Python model of csrc/sc25519.cuh (the 10-limb mod-l core of
-K1 mul_rows mod l) against Python integers.
+K1 mul_rows mod l, and the sum and difference of the witness kernels)
+against Python integers.
 
 As tests/test_torch_field_model.py does for the mod-p header: every function
 below mirrors one device function statement by statement on Python ints that
@@ -113,6 +114,45 @@ def sc_mul(a, b):
         c = t >> BITS
     y[NL - 1] = c
     return y
+
+
+def i32(x: int) -> int:
+    assert -(1 << 31) <= x < 1 << 31, f"signed 32-bit word wrapped: {x}"
+    return x
+
+
+def sc_l_limb(j):
+    return SC_D[j] if j < D_LIMBS else (1 if j == NL - 1 else 0)
+
+
+def sc_add(a, b):
+    s, d, c = [0] * NL, [0] * NL, 0
+    for j in range(NL):
+        t = u32(a[j] + b[j] + c)
+        s[j] = t & MASK
+        c = t >> BITS
+    assert c == 0
+    borrow = 0
+    for j in range(NL):
+        t = i32(s[j] - sc_l_limb(j) - borrow)
+        d[j] = (t & 0xFFFFFFFF) & MASK
+        borrow = int(t < 0)
+    return s if borrow else d
+
+
+def sc_sub(a, b):
+    d, borrow = [0] * NL, 0
+    for j in range(NL):
+        t = i32(a[j] - b[j] - borrow)
+        d[j] = (t & 0xFFFFFFFF) & MASK
+        borrow = int(t < 0)
+    neg = (0 - borrow) & 0xFFFFFFFF
+    c = 0
+    for j in range(NL):
+        t = u32(d[j] + (sc_l_limb(j) & neg) + c)
+        d[j] = t & MASK
+        c = t >> BITS
+    return d
 
 
 def sc_store_row(a):
@@ -239,3 +279,35 @@ def test_mul_rows_block_model_mod_l(a_mis, b_mis, out_mis):
     for t in range(n):
         want = from_limbs13(a[t]) * from_limbs13(b[t]) % L
         assert memory[o + ROW * t:o + ROW * (t + 1)] == limbs13(want)
+
+
+def _limbs28(v):
+    return [(v >> (BITS * i)) & MASK for i in range(NL)]
+
+
+CANONICAL_EDGES = [0, 1, 2, L - 2, L - 1, 2**252 - 1, 2**252, L // 2, L // 2 + 1,
+                   (1 << BITS) - 1, 1 << BITS]
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_add_and_sub_on_canonical_edges(op):
+    fn, want = (sc_add, lambda a, b: (a + b) % L) if op == "add" else (
+        sc_sub, lambda a, b: (a - b) % L)
+    for va in CANONICAL_EDGES:
+        for vb in CANONICAL_EDGES:
+            y = fn(_limbs28(va), _limbs28(vb))
+            assert all(v <= MASK for v in y) and y[9] <= 1
+            assert value(y) == want(va, vb), (va, vb)
+            assert sc_store_row(y) == limbs13(want(va, vb))
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(0, L - 1), st.integers(0, L - 1))
+def test_add_and_sub_canonical_scalars(va, vb):
+    a, b = _limbs28(va), _limbs28(vb)
+    assert value(sc_add(a, b)) == (va + vb) % L
+    assert value(sc_sub(a, b)) == (va - vb) % L
+    # a load of 13-bit limbs, then the product by one, canonicalises any row
+    # the kernels read before they add
+    one = _limbs28(1)
+    assert value(sc_mul(sc_load_row(limbs13(va + L)), one)) == va
