@@ -45,9 +45,10 @@ import asyncio
 import itertools
 import logging
 import os
+import queue
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
@@ -61,7 +62,7 @@ from .models.proof_struct import BlindBidProof, R1CSProof
 from .models.transcript_protocol import ProofError
 from .ops import fused
 from .utils.curve_host import L
-from .utils.profiling import span
+from .utils.profiling import count, span
 from .utils.tlv import TlvReader, TlvWriter
 
 log = logging.getLogger("blindbid.server")
@@ -151,7 +152,18 @@ class BatchingService:
     DEBUG line on `blindbid.server`: its kind, list length, batch size,
     request ids, the oldest and newest request's queue wait (arrival to the
     pass's start on the worker thread), the pass's seconds, and the span's
-    pass id while spans are on (utils/profiling.py)."""
+    pass id while spans are on (utils/profiling.py).  While spans are on, a
+    pass also adds to three counters: `server.passes` (1),
+    `server.requests` (its batch size) and `server.queue_wait_s` (its
+    requests' queue waits, summed).
+
+    `run_on_worker(fn)` runs a call on the worker thread between two passes,
+    ahead of the passes already queued: a profiler, which records the thread
+    that started it, starts and stops there.
+
+    A waiter that a pass's results do not cover (a pass that returned fewer
+    results than it was given requests) gets a `RuntimeError`, so its
+    connection is answered the error frame and not left waiting."""
 
     def __init__(self, window_ms: float = 5.0, max_batch: int = 16, device=None):
         self.window = window_ms / 1000.0
@@ -161,6 +173,7 @@ class BatchingService:
         self._tasks: set = set()
         self._ids = itertools.count(1)
         self._executor: ThreadPoolExecutor | None = None
+        self._calls: queue.SimpleQueue = queue.SimpleQueue()  # (fn, Future) for the worker
 
     def start(self) -> None:
         """Resolve the device (raises without a GPU unless another device was
@@ -184,6 +197,8 @@ class BatchingService:
         if self._executor is not None:
             self._executor.shutdown(wait=True, cancel_futures=True)
             self._executor = None
+        while not self._calls.empty():  # calls the worker will not run now
+            self._calls.get()[1].cancel()
 
     def _spawn(self, coro) -> None:
         task = asyncio.get_running_loop().create_task(coro)
@@ -206,6 +221,26 @@ class BatchingService:
             self._spawn(self._flush(key, q))
         return await fut
 
+    async def run_on_worker(self, fn):
+        """`fn()` run on the worker thread before the next pass begins, or at
+        once if none is running; returns what it returns."""
+        if self._executor is None:
+            raise RuntimeError("BatchingService.start() has not run")
+        fut = Future()
+        self._calls.put((fn, fut))
+        self._executor.submit(self._run_calls)  # for a worker with no pass to come
+        return await asyncio.wrap_future(fut)
+
+    def _run_calls(self) -> None:
+        """The calls `run_on_worker` queued, in order (on the worker thread)."""
+        while not self._calls.empty():
+            fn, fut = self._calls.get()
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(fn())
+                except BaseException as exc:
+                    fut.set_exception(exc)
+
     async def _flush_later(self, key, q) -> None:
         await asyncio.sleep(self.window)
         if self._queues.get(key) is q:  # not flushed full in the meantime
@@ -221,16 +256,26 @@ class BatchingService:
                 if not fut.done():
                     fut.set_exception(exc)
             return
-        for (_, fut, _, _), res in zip(q, results):
-            if not fut.done():
-                fut.set_result(res)
+        for i, (_, fut, rid, _) in enumerate(q):
+            if fut.done():
+                continue
+            if i < len(results):
+                fut.set_result(results[i])
+            else:
+                fut.set_exception(RuntimeError(
+                    f"request {rid}: the pass returned {len(results)} results "
+                    f"for {len(q)} requests"))
 
     def _pass(self, key, q) -> list:
         """One device pass over the queued requests (on the worker thread)."""
+        self._run_calls()
         kind, shape = key
         run = blindbid.prove_batch if kind == "prove" else blindbid.verify_batch
         pass_span = span("server.pass")
         start = time.perf_counter()
+        count("server.passes")
+        count("server.requests", len(q))
+        count("server.queue_wait_s", sum(start - t for _, _, _, t in q))
         try:
             with pass_span:
                 return run([item for item, _, _, _ in q], device=self.device)
@@ -312,19 +357,25 @@ class BlindBidServer:
                 raise ValueError("empty request")
             opcode = request[0]
             body = request[1:]
+            # neither span holds an await: a span's stack is its thread's, and
+            # the connections' tasks interleave on the loop's thread
             if opcode == OP_PROVE:
-                req = parse_prove_request(body)
-                blindbid.check_list_len(len(req.pub_list))
+                with span("server.decode"):
+                    req = parse_prove_request(body)
+                    blindbid.check_list_len(len(req.pub_list))
                 proof = await self.service.submit("prove", len(req.pub_list), req)
-                w.write(encode_proof(proof))
+                with span("server.encode"):
+                    w.write(encode_proof(proof))
             elif opcode == OP_VERIFY:
-                req = parse_verify_request(body)
-                blindbid.check_list_len(len(req.pub_list))
+                with span("server.decode"):
+                    req = parse_verify_request(body)
+                    blindbid.check_list_len(len(req.pub_list))
                 ok = await self.service.submit(
                     "verify", (len(req.pub_list), len(req.proof.r1cs.ipp_L)), req
                 )
                 # a failed verification is the normal answer 0x00, not an error
-                w.write(b"\x01" if ok else b"\x00")
+                with span("server.encode"):
+                    w.write(b"\x01" if ok else b"\x00")
             else:
                 raise ValueError(f"unknown opcode {opcode}")
         except Exception as exc:

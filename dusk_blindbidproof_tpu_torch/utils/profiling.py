@@ -25,6 +25,10 @@ Per name, the totals (`totals()`), the counts and the self times
 summed as spans close, so they never drop.  `records()` returns the buffer,
 `report()` a table by total, and `reset()` clears all of it.
 
+Counters sit beside the spans: `count(name, value)` adds `value` to the
+counter `name` while spans are on and does nothing while they are off;
+`counters()` returns the sums, and `reset()` clears them too.
+
 Spans do not synchronise the device: a span around device work times the
 host's enqueue, and the host's blocking copies are spans of their own
 (`device.h2d`, `device.d2h` in models/bulletproofs.py).
@@ -77,6 +81,7 @@ _DROPPED = 0
 _TOTALS: dict[str, int] = defaultdict(int)  # ns
 _SELF: dict[str, int] = defaultdict(int)  # ns
 _COUNTS: dict[str, int] = defaultdict(int)
+_COUNTERS: dict[str, float] = defaultdict(float)
 
 
 class _On:
@@ -142,11 +147,25 @@ def reset() -> None:
         _TOTALS.clear()
         _SELF.clear()
         _COUNTS.clear()
+        _COUNTERS.clear()
 
 
 def span(name: str):
     """A context that records one span of `name` while spans are on."""
     return _On(name) if _ENABLED else _OFF
+
+
+def count(name: str, value: float = 1) -> None:
+    """Add `value` to the counter `name` while spans are on."""
+    if _ENABLED:
+        with _LOCK:
+            _COUNTERS[name] += value
+
+
+def counters() -> dict[str, float]:
+    """The counters' sums by name."""
+    with _LOCK:
+        return dict(_COUNTERS)
 
 
 def records() -> list[Span]:
